@@ -4,7 +4,8 @@
 
 Phases, each printing one line (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit, and
-     the nvcc build of both kernels (fitslam_tpu_torch/csrc/*.cu);
+     the nvcc build of the three kernels (fitslam_tpu_torch/csrc/*.cu, one
+     nvcc per source, started together);
   2. K1 (patch gather) against its plain twin at the bench's four pyramid
      level shapes, including clamped borders: bit-equal;
   3. K2 (gated Hamming top-2) against its plain twin in all three gate modes
@@ -14,9 +15,18 @@ Phases, each printing one line (any failure raises and exits non-zero):
   5. bench size (640x480, 4 levels, 1024 features, 8192 landmarks, 60 frames
      rendered on the card from tests/data/bench_corridor_world.npz) through
      process_frame_async + finalize: one untimed pass, then three timed passes,
-     each held to ATE <= 0.025 m and 8 K1 launches per frame.
-Then a JSON line with every kernel's launches (last timed pass), error and
-device times (CUDA events, level-0 / window 1024x8192 shapes), the card's
+     each held to ATE <= 0.025 m and 8 K1 launches per frame;
+  6. K3 (wavefront sweeps) against its plain twin at (G, iters) = (64, 192),
+     (320, 512) and (512, 512), on random step costs and on a rooms-world
+     maze: exactly equal;
+  7. (two lines) rapid-mode exploration at full width (the configured 80 m global map at
+     0.25 m, G = 320, FitSlamConfig.preset("rapid")) through
+     ExplorationServer.tick() and SimNavInterface.step() for 300 steps, then
+     the G = 64 configuration of bench_suite.py::bench_ablation held to
+     tests/test_exploration_e2e.py's bounds.
+Then a JSON line with every kernel's launches (K1/K2 from the last timed
+pass of phase 5, K3 from the G = 320 run of phase 7), error and device times
+(CUDA events; level-0, window 1024x8192 and G = 320 shapes), the card's
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 
 There is no CPU path: without a CUDA device the script exits with an error.
@@ -28,6 +38,8 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +50,12 @@ ATE_BOUND_M = 0.025
 GOLDEN_KF_RANGE = (10, 30)
 N_BENCH_FRAMES = 60
 N_TIMED_PASSES = 3
+KERNELS = ("patch_gather", "hamming_top2", "wavefront_sweep")
+K3_CASES = ((64, 192), (320, 512), (512, 512))
+EXPLORE_STEPS = 300
+# final coverage of bench_suite.py::bench_ablation's arrival-info + roadmap
+# method at step 299 (ABLATION_COVERAGE.csv), the reference's own run
+REFERENCE_ABLATION_COVERAGE = 0.930
 
 
 def log(msg: str) -> None:
@@ -79,10 +97,10 @@ def phase_environment():
     from fitslam_tpu_torch.utils import cuda_build
 
     t0 = time.monotonic()
-    for name in ("patch_gather", "hamming_top2"):
-        cuda_build.load_kernel_library(name)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(cuda_build.load_kernel_library, KERNELS))
     build_s = time.monotonic() - t0
-    ptxas = [ln.strip() for name in ("patch_gather", "hamming_top2")
+    ptxas = [ln.strip() for name in KERNELS
              for ln in cuda_build.build_log(name).splitlines() if "registers" in ln]
     log(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} | {smi} | kernels built in {build_s:.1f} s; "
@@ -196,18 +214,22 @@ def phase_k2(dev):
 
 
 def _reset_counts():
+    from fitslam_tpu_torch.ops.pallas_grid import wavefront_sweeps
     from fitslam_tpu_torch.ops.pallas_matching import hamming_top2
     from fitslam_tpu_torch.ops.pallas_patches import gather_patches
 
     gather_patches.launches = 0
     hamming_top2.launches = 0
+    wavefront_sweeps.launches = 0
 
 
 def _counts():
+    """(K1, K2, K3) launches since the last reset."""
+    from fitslam_tpu_torch.ops.pallas_grid import wavefront_sweeps
     from fitslam_tpu_torch.ops.pallas_matching import hamming_top2
     from fitslam_tpu_torch.ops.pallas_patches import gather_patches
 
-    return gather_patches.launches, hamming_top2.launches
+    return gather_patches.launches, hamming_top2.launches, wavefront_sweeps.launches
 
 
 def phase_golden(dev):
@@ -239,7 +261,7 @@ def phase_golden(dev):
     _reset_counts()
     for l, r in frames:
         slam.process_frame(l, r)
-    k1, k2 = _counts()
+    k1, k2, _ = _counts()
     gt = list(np.load(seq / "gt_poses.npy"))
     ate = ev.ate_rmse(slam.trajectory, gt)
     n_kf = int(slam.map.n_kf)
@@ -326,7 +348,7 @@ def phase_bench(dev):
             slam.process_frame_async(l, r)
         torch.cuda.synchronize()
         fps.append(N_BENCH_FRAMES / (time.monotonic() - t0))
-        k1, k2 = _counts()
+        k1, k2, _ = _counts()
         syncs = slam.host_syncs
         stats = slam.finalize()
         ate = ev.ate_rmse(slam.trajectory, gt)
@@ -348,6 +370,216 @@ def phase_bench(dev):
     return k1, k2
 
 
+def _k3_problems(G):
+    """Two (pot0, step, passable) problems at G: random step costs in
+    [0.25, 0.55] on 90 % passable cells with the goal at corner cell (0, 0),
+    and the rooms-world maze (step 0.25 m, walls impassable) with the goal
+    at the corner cell of its free area, (2, 2)."""
+    from fitslam_tpu_torch.models.sim_robot import make_rooms_world
+    from fitslam_tpu_torch.ops.grid import LETHAL, GridSpec2D
+    from fitslam_tpu_torch.ops.pallas_grid import BIG
+
+    rng = np.random.RandomState(G)
+    step = rng.uniform(0.25, 0.55, (G, G)).astype(np.float32)
+    passable = rng.rand(G, G) < 0.9
+    pot0 = np.full((G, G), BIG, np.float32)
+    pot0[0, 0] = 0.0
+    maze = make_rooms_world(GridSpec2D(G, 0.25, 0.0, 0.0), seed=1)
+    maze_pot0 = np.full((G, G), BIG, np.float32)
+    maze_pot0[2, 2] = 0.0
+    return [(pot0, step, passable),
+            (maze_pot0, np.full((G, G), 0.25, np.float32), maze != LETHAL)]
+
+
+def phase_k3(dev):
+    from fitslam_tpu_torch.ops.pallas_grid import BIG, wavefront_sweeps, wavefront_sweeps_plain
+
+    worst, parts, times = 0.0, [], {}
+    for G, iters in K3_CASES:
+        problems = [tuple(torch.as_tensor(a, device=dev) for a in p) for p in _k3_problems(G)]
+        for k, (pot0, step, passable) in enumerate(problems):
+            got = wavefront_sweeps(pot0, step, passable, iters)
+            ref = wavefront_sweeps_plain(pot0, step, passable, iters)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K3 differs from its twin at G={G} iters={iters} "
+                                     f"problem {k}: {int((got != ref).sum())} cells, max |d| "
+                                     f"{(got - ref).abs().max().item()}")
+            worst = max(worst, (got - ref).abs().max().item())
+            reached = int((ref < BIG).sum())
+            if reached < G:
+                raise AssertionError(f"K3 problem {k} at G={G}: the wavefront reached "
+                                     f"only {reached} cells")
+        pot0, step, passable = problems[0]
+        kern = cuda_time_ms(lambda: wavefront_sweeps(pot0, step, passable, iters), reps=20)
+        plain = cuda_time_ms(lambda: wavefront_sweeps_plain(pot0, step, passable, iters),
+                             reps=3, warmup=1)
+        times[G] = (kern, plain)
+        parts.append(f"G={G} iters={iters}: kernel {kern[0]:.3f} ms device / {kern[1]:.3f} ms "
+                     f"wall, plain {plain[0]:.2f} ms device / {plain[1]:.2f} ms wall")
+    log(f"[6 K3] exactly equal to its twin (tolerance 0, max |d| {worst}) on random and "
+        f"rooms-maze problems at {K3_CASES}; " + "; ".join(parts))
+    return {"max_abs_err": worst, "ms": times[320][0][0], "plain_ms": times[320][1][0]}
+
+
+@contextmanager
+def _torch_syncs(tally: dict, key: str):
+    """Add to ``tally[key]`` torch's own count of synchronising calls made
+    inside the block (sync debug mode "warn" only there)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    tally[key] += sum("synchroniz" in str(w.message) for w in caught)
+
+
+def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS):
+    """The loop of tests/test_exploration_e2e.py through the port: reveal
+    (3 m), a tick every second step, 4 controller steps per step. Returns a
+    dict of what the run measured."""
+    from fitslam_tpu_torch.models import sim_robot as sim
+    from fitslam_tpu_torch.models.exploration import ExplorationServer, ExplorationState
+    from fitslam_tpu_torch.models.sim_nav import SimNavInterface
+    from fitslam_tpu_torch.ops.grid import UNKNOWN
+    from fitslam_tpu_torch.utils.transfer import upload
+
+    gt = torch.as_tensor(sim.make_rooms_world(spec, seed=1), device=dev)
+    state = {"explored": torch.full((spec.size, spec.size), UNKNOWN, dtype=torch.uint8,
+                                    device=dev)}
+    robot = sim.DiffDriveRobot(x=start_xy[0], y=start_xy[1], yaw=0.0, v_max=1.2, w_max=2.5)
+    nav = SimNavInterface(cfg, spec, robot, lambda: state["explored"], dt=0.15, device=dev)
+    nav.controller.max_omega = 2.0
+    server = ExplorationServer(cfg, spec, lambda: state["explored"], nav,
+                               get_robot_pose=lambda: (robot.xy, robot.yaw), device=dev)
+    coverage = torch.zeros(n_steps, device=dev)
+    # per window (tick / controller): calls, seconds, K3 launches, torch syncs
+    r = {f"{w}_{k}": 0 for w in ("tick", "ctrl") for k in ("n", "s", "k3", "torch_syncs")}
+    _reset_counts()
+    steps = 0
+    for step in range(n_steps):
+        state["explored"] = sim.reveal_sensor(
+            spec, gt, state["explored"], upload(np.asarray(robot.xy, np.float32), dev),
+            range_m=3.0)
+        done = False
+        for w in ("tick", "ctrl"):
+            if (w == "tick" and step % 2) or done:
+                continue
+            torch.cuda.synchronize()
+            k3, t0 = _counts()[2], time.perf_counter()
+            with _torch_syncs(r, f"{w}_torch_syncs"):
+                if w == "tick":
+                    done = server.tick() == ExplorationState.DONE
+                else:
+                    for _ in range(4):
+                        nav.step()
+            torch.cuda.synchronize()
+            r[f"{w}_n"] += 1 if w == "tick" else 4
+            r[f"{w}_s"] += time.perf_counter() - t0
+            r[f"{w}_k3"] += _counts()[2] - k3
+        coverage[step] = (state["explored"] != UNKNOWN).to(torch.float32).mean()
+        steps = step + 1
+        if done:
+            break
+    cov = coverage[:steps].cpu().numpy()
+    explored = state["explored"].cpu().numpy()
+    known = explored != UNKNOWN
+    r.update(
+        steps=steps, coverage=cov, goals=server.diag.goals_sent, k3=_counts()[2],
+        agree=float((explored[known] == sim.make_rooms_world(spec, seed=1)[known]).mean()),
+        plans=nav.plans, tick_syncs=server.host_syncs, ctrl_syncs=nav.host_syncs,
+        nodes=int(server.roadmap.n_nodes))
+    return r
+
+
+def ablation_config():
+    """bench_suite.py::bench_ablation's G = 64 configuration (arrival info +
+    roadmap costs), which is tests/test_exploration_e2e.py's."""
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    cfg = FitSlamConfig()
+    return dataclasses.replace(
+        cfg,
+        frontier_search=dataclasses.replace(cfg.frontier_search, search_radius_m=6.0,
+                                            max_frontiers=64),
+        roadmap=dataclasses.replace(cfg.roadmap, max_nodes=256, cleanup_period_s=5.0),
+        nav=dataclasses.replace(cfg.nav, wavefront_iters=192, desired_speed=0.8),
+        exploration_bt=dataclasses.replace(cfg.exploration_bt, nav2_goal_timeout_s=30.0),
+        fisher_information=dataclasses.replace(cfg.fisher_information, enabled=False),
+        cost_assigner=dataclasses.replace(
+            cfg.cost_assigner,
+            cost_calculation_methods=("ArrivalInformation", "RoadmapPlannerDistance")),
+    )
+
+
+def phase_explore(dev, n_steps=EXPLORE_STEPS):
+    from fitslam_tpu_torch.models import nav
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+    from fitslam_tpu_torch.utils.transfer import upload
+
+    t_phase = time.monotonic()
+    cfg = FitSlamConfig.preset("rapid")
+    spec = GridSpec2D(int(round(cfg.traversability.global_size_m / cfg.traversability.resolution)),
+                      cfg.traversability.resolution, -cfg.traversability.global_size_m / 2,
+                      -cfg.traversability.global_size_m / 2)
+    start_xy = (spec.origin_x + 3.0, spec.origin_y + 3.0)     # (-37, -37) at G = 320
+    r = explore(dev, spec, cfg, start_xy, n_steps)
+    cov = r["coverage"]
+    # one descend_potential call at this width, from the start on a plan to
+    # the map's centre
+    from fitslam_tpu_torch.models import sim_robot as sim
+
+    occ = torch.as_tensor(sim.make_rooms_world(spec, seed=1), device=dev)
+    start = upload(np.array(start_xy, np.float32), dev)
+    centre = np.array([spec.origin_x, spec.origin_y], np.float32) + spec.extent / 2
+    pot = nav.wavefront_potential(spec, occ, upload(centre, dev), iters=cfg.nav.wavefront_iters)
+    descend = cuda_time_ms(lambda: nav.descend_potential(spec, pot, start), reps=20)
+    n_t, n_c = max(r["tick_n"], 1), max(r["ctrl_n"], 1)
+    log(f"[7 explore] G={spec.size} at {spec.resolution} m, preset rapid "
+        f"(wavefront_iters {cfg.nav.wavefront_iters}, max_frontiers "
+        f"{cfg.frontier_search.max_frontiers}, roadmap {cfg.roadmap.max_nodes} nodes), "
+        f"{r['steps']} steps: {r['tick_n'] / r['tick_s']:.2f} ticks/s "
+        f"({r['tick_s'] / n_t * 1e3:.1f} ms/tick), {r['ctrl_n'] / r['ctrl_s']:.1f} controller "
+        f"steps/s ({r['ctrl_s'] / n_c * 1e3:.2f} ms/step, {r['plans']} plans); "
+        f"descend_potential {_us(descend)}; coverage {cov[min(10, len(cov) - 1)]:.4f} at step 10, "
+        f"{cov[-1]:.4f} at step {r['steps']}; {r['goals']} goals, {r['nodes']} roadmap nodes; "
+        f"K3 launches {r['tick_k3'] / n_t:.2f}/tick, {r['ctrl_k3'] / max(r['plans'], 1):.2f}/plan; "
+        f"host syncs {r['tick_syncs'] / n_t:.2f}/tick and {r['ctrl_syncs'] / n_c:.3f}/controller "
+        f"step (torch's count {r['tick_torch_syncs'] / n_t:.2f} and "
+        f"{r['ctrl_torch_syncs'] / n_c:.3f}); explored map agrees with the ground truth "
+        f"{r['agree']:.4f}")
+    if r["tick_k3"] < r["tick_n"] or r["ctrl_k3"] < r["plans"] or r["plans"] < 1:
+        raise AssertionError(f"K3 not launched on every tick and plan: {r['tick_k3']} over "
+                             f"{r['tick_n']} ticks, {r['ctrl_k3']} over {r['plans']} plans")
+    if not cov[-1] > cov[min(10, len(cov) - 1)]:
+        raise AssertionError(f"coverage did not grow: {cov[10]} -> {cov[-1]}")
+    if r["goals"] < 2:
+        raise AssertionError(f"only {r['goals']} goals sent")
+    if not r["agree"] > 0.97:
+        raise AssertionError(f"explored map agrees with the ground truth {r['agree']}")
+    if (r["tick_syncs"], r["ctrl_syncs"]) != (r["tick_torch_syncs"], r["ctrl_torch_syncs"]):
+        raise AssertionError(f"host sync counts differ: engine {r['tick_syncs']} / "
+                             f"{r['ctrl_syncs']}, torch {r['tick_torch_syncs']} / "
+                             f"{r['ctrl_torch_syncs']} (ticks / controller steps)")
+    k3_main = r["k3"]
+
+    small = GridSpec2D(64, 0.25, -8.0, -8.0)
+    a = explore(dev, small, ablation_config(), (-5.0, -5.0), n_steps)
+    acov = a["coverage"]
+    log(f"[7 explore] G=64 bench_ablation config, {a['steps']} steps: final coverage "
+        f"{acov[-1]:.4f} (reference {REFERENCE_ABLATION_COVERAGE} at step 299), "
+        f"{acov[10]:.4f} at step 10, "
+        f"{a['goals']} goals, {a['tick_n'] / a['tick_s']:.2f} ticks/s, "
+        f"{a['ctrl_n'] / a['ctrl_s']:.1f} controller steps/s; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    if not (acov[-1] > 0.5 and acov[-1] > acov[10] + 0.2):
+        raise AssertionError(f"G=64 coverage {acov[10]} -> {acov[-1]} misses the bounds")
+    return k3_main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -361,6 +593,8 @@ def main() -> int:
     k2 = phase_k2(dev)
     phase_golden(dev)
     n1, n2 = phase_bench(dev)
+    k3 = phase_k3(dev)
+    n3 = phase_explore(dev)
     kernels = [
         {"name": "K1 patch gather", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/patch_gather.cu",
@@ -368,6 +602,9 @@ def main() -> int:
         {"name": "K2 gated Hamming top-2", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/hamming_top2.cu",
          "replaces": "fitslam_tpu/ops/pallas_matching.py:31", "launches": n2, **k2},
+        {"name": "K3 wavefront sweeps", "route": "cuda",
+         "source": "fitslam_tpu_torch/csrc/wavefront_sweep.cu",
+         "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": n3, **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

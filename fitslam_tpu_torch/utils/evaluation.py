@@ -1,7 +1,7 @@
-"""Absolute trajectory error (the ATE part of
-``fitslam_tpu/utils/evaluation.py``), in numpy on the host: evaluation never
-touches device state. ``tests/test_torch_utils.py`` holds it equal to the
-reference."""
+"""Absolute trajectory error, path length and coverage (the parts of
+``fitslam_tpu/utils/evaluation.py`` the ported slices report), in numpy on
+the host: evaluation never touches device state. ``tests/test_torch_utils.py``
+holds them equal to the reference."""
 
 from __future__ import annotations
 
@@ -38,10 +38,23 @@ def ate_rmse(traj_est: Sequence[np.ndarray], traj_gt: Sequence[np.ndarray],
     return float(np.sqrt(np.mean(np.sum((p_e - p_g) ** 2, axis=1))))
 
 
+def path_length(traj) -> float:
+    p = _positions(traj)
+    return float(np.sum(np.linalg.norm(np.diff(p, axis=0), axis=1)))
+
+
+def coverage_fraction(grid_known: np.ndarray) -> float:
+    """Fraction of cells whose state is known (reference: explored_map_counter)."""
+    return float(np.mean(grid_known))
+
+
 def _positions(traj) -> np.ndarray:
     arr = np.asarray(traj, dtype=np.float64)
     if arr.ndim == 3 and arr.shape[-2:] == (4, 4):
         return arr[:, :3, 3]
     if arr.ndim == 2 and arr.shape[-1] == 3:
         return arr
+    if arr.ndim == 2 and arr.shape[-1] == 2:
+        # planar (x, y) trajectory (exploration robots): z = 0
+        return np.concatenate([arr, np.zeros((arr.shape[0], 1))], axis=1)
     raise ValueError(f"unsupported trajectory shape {arr.shape}")

@@ -54,6 +54,11 @@ class EventLogger:
 
     time_tier: int = MODULE          # suppress tiers below this
     stats: Dict[str, _Stat] = field(default_factory=lambda: defaultdict(_Stat))
+    _t0: float = field(default_factory=time.monotonic)
+
+    def time_since_start(self) -> float:
+        """Scheduling timer (reference: getTimeSinceStart, used by BT nodes)."""
+        return time.monotonic() - self._t0
 
     @contextmanager
     def scope(self, name: str, tier: int = EVENT, block_on=None):

@@ -6,14 +6,17 @@ they carry the ``gpu`` marker and skip without CUDA. On the card:
     python3 -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: none. K1 is a copy (bit-equal); K2's outputs are integers
-(exactly equal).
+(exactly equal); K3 is min and one float32 add per cell and sweep, in the
+same Jacobi order as its twin (exactly equal).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from fitslam_tpu_torch.ops import orb
+from fitslam_tpu_torch.models import nav, sim_robot
+from fitslam_tpu_torch.ops import grid, orb
+from fitslam_tpu_torch.ops import pallas_grid as pg
 from fitslam_tpu_torch.ops import pallas_matching as pm
 from fitslam_tpu_torch.ops import pallas_patches as pp
 
@@ -61,3 +64,30 @@ def test_k2_equal_to_twin(cuda, mode, na, nb):
     ref = pm.hamming_top2_plain(**args)
     for f in pm.Top2._fields:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("G,iters", [(64, 192), (100, 37), (320, 512), (512, 512), (17, 0)])
+def test_k3_equal_to_twin(cuda, G, iters):
+    rng = np.random.RandomState(G + iters)
+    step = torch.tensor((rng.rand(G, G) * 0.3 + 0.25).astype(np.float32), device=cuda)
+    passable = torch.tensor(rng.rand(G, G) < 0.9, device=cuda)
+    pot0 = np.full((G, G), pg.BIG, np.float32)
+    pot0[G - 1, 0] = 0.0                     # goal at a corner cell
+    pot0 = torch.tensor(pot0, device=cuda)
+    before = pg.wavefront_sweeps.launches
+    got = pg.wavefront_sweeps(pot0, step, passable, iters)
+    assert pg.wavefront_sweeps.launches == before + 1
+    assert torch.equal(got, pg.wavefront_sweeps_plain(pot0, step, passable, iters))
+    assert pot0[G - 1, 0].item() == 0.0      # the input is not modified
+
+
+def test_k3_wavefront_potential_on_rooms_world(cuda):
+    spec = grid.GridSpec2D(320, 0.25, -40.0, -40.0)
+    occ = torch.tensor(sim_robot.make_rooms_world(spec, seed=1), device=cuda)
+    goal = torch.tensor([-37.0, -37.0], device=cuda)
+    before = pg.wavefront_sweeps.launches
+    pot = nav.wavefront_potential(spec, occ, goal, iters=512)
+    assert pg.wavefront_sweeps.launches == before + 1
+    occ_cpu = occ.cpu()
+    ref = nav.wavefront_potential(spec, occ_cpu, goal.cpu(), iters=512)
+    assert torch.equal(pot.cpu(), ref)

@@ -1,9 +1,12 @@
-"""The port's copies of the reference's jax-free helpers: the slice's config
-sections, the ATE evaluation and the PGM reader. The port keeps copies so
-that it imports nothing of the reference package; these tests hold each
-copy equal to the reference (exactly: the arithmetic is the same numpy)."""
+"""The port's copies of the reference's jax-free helpers: the ported slices'
+config sections (with ``preset`` and ``validate``), the ATE, path-length and
+coverage evaluation and the PGM reader. The port keeps copies so that it
+imports nothing of the reference package; these tests hold each copy equal
+to the reference (exactly: the arithmetic is the same numpy)."""
 
 import dataclasses
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +20,11 @@ from fitslam_tpu_torch.utils import config as tcfg
 from fitslam_tpu_torch.utils import evaluation as tev
 
 SEQ = Path(__file__).resolve().parent / "data" / "corridor_seq"
-SECTIONS = ["camera", "orb", "tracking", "mapping", "loop"]
+ROOT = Path(__file__).resolve().parents[1]
+SECTIONS = ["camera", "orb", "tracking", "mapping", "loop", "traversability",
+            "frontier_search", "cost_calculator", "cost_assigner", "roadmap",
+            "path_optimizer", "goal_hysteresis", "fisher_information", "exploration_bt",
+            "sensor_simulator", "nav", "costmaps", "recovery"]
 
 
 @pytest.mark.parametrize("section", SECTIONS)
@@ -30,6 +37,82 @@ def test_config_section_defaults_equal_reference(section):
 
 def test_config_holds_only_the_slice_sections():
     assert [f.name for f in dataclasses.fields(tcfg.FitSlamConfig)] == SECTIONS
+
+
+@pytest.mark.parametrize("mode", ["rapid", "light", "active_slam"])
+def test_config_presets_equal_reference(mode):
+    ref = jcfg.FitSlamConfig.preset(mode)
+    port = tcfg.FitSlamConfig.preset(mode)
+    for section in SECTIONS:
+        assert dataclasses.asdict(getattr(port, section)) == dataclasses.asdict(getattr(ref, section))
+    with pytest.raises(KeyError):
+        tcfg.FitSlamConfig.preset("fast")
+
+
+def test_config_validate_raises_as_reference():
+    cfg = tcfg.FitSlamConfig()
+    bad = [
+        dataclasses.replace(cfg, goal_hysteresis=dataclasses.replace(
+            cfg.goal_hysteresis, use_roadmap=True)),
+        dataclasses.replace(cfg, cost_assigner=dataclasses.replace(cfg.cost_assigner, alpha=0.0)),
+        dataclasses.replace(cfg, fisher_information=dataclasses.replace(
+            cfg.fisher_information, threshold=0.0)),
+        dataclasses.replace(cfg, traversability=dataclasses.replace(
+            cfg.traversability, lethal_threshold=300)),
+        dataclasses.replace(cfg, frontier_search=dataclasses.replace(
+            cfg.frontier_search, max_frontier_cluster_size=0)),
+    ]
+    for c in bad:
+        with pytest.raises(ValueError):
+            c.validate()
+    assert cfg.validate() is cfg
+
+
+def test_path_length_and_coverage_equal_reference():
+    rng = np.random.RandomState(5)
+    traj = np.cumsum(rng.normal(size=(40, 2)), axis=0)
+    assert tev.path_length(traj) == jev.path_length(traj)
+    assert tev.path_length(np.c_[traj, traj[:, :1]]) == jev.path_length(np.c_[traj, traj[:, :1]])
+    known = rng.rand(32, 32) < 0.3
+    assert tev.coverage_fraction(known) == jev.coverage_fraction(known)
+
+
+def test_interop_passes_grid_spec_through():
+    from fitslam_tpu.ops.grid import GridSpec2D as JSpec
+    from fitslam_tpu_torch.ops.grid import GridSpec2D as TSpec
+    from fitslam_tpu_torch.utils import interop
+
+    spec = JSpec(320, 0.25, -40.0, -40.0)
+    got = interop.to_torch(spec)
+    assert isinstance(got, TSpec) and tuple(got) == tuple(spec)
+    assert all(type(a) is type(b) for a, b in zip(got, spec))
+    assert interop.to_numpy(got) is got
+    assert got.world_to_cell is not None and got.extent == spec.extent
+
+
+def test_exploration_slice_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import fitslam_tpu_torch.models.sim_nav, fitslam_tpu_torch.models.exploration\n"
+        "import fitslam_tpu_torch.ops.pallas_grid, fitslam_tpu_torch.utils.interop\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fitslam_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_logging_warn_matches_reference_format(capsys):
+    from fitslam_tpu.utils import logging as jlog
+    from fitslam_tpu_torch.utils import logging as tlog
+
+    tlog.warn("probe")
+    jlog.warn("probe")
+    lines = capsys.readouterr().err.strip().splitlines()
+    assert len(lines) == 2
+    assert [ln.split("]")[-1] for ln in lines] == [" probe", " probe"]
+    assert all("WARN" in ln for ln in lines)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
