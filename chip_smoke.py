@@ -8,8 +8,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      nvcc per source, started together);
   2. K1 (patch gather) against its plain twin at the bench's four pyramid
      level shapes, including clamped borders: bit-equal;
-  3. K2 (gated Hamming top-2) against its plain twin in all three gate modes
-     at 1024 x 8192 with planted matches and ties: exactly equal;
+  3. K2 (gated Hamming top-2), both designs of its distance product (the
+     shipped single-bit tensor-core one and the +-1 int8 one), against its
+     plain twin in all three gate modes at 1024 x 8192 and 1024 x 1024 with
+     planted matches and ties, and at ragged shapes: exactly equal; both
+     designs timed at the main path's two shapes, and the shipped one at
+     several column splits;
   4. golden replay of tests/data/corridor_seq through StereoSlam.process_frame:
      ATE <= 0.025 m, 10-30 keyframes, both kernels launched;
   5. bench size (640x480, 4 levels, 1024 features, 8192 landmarks, 60 frames
@@ -18,16 +22,29 @@ Phases, each printing one line (any failure raises and exits non-zero):
      each held to ATE <= 0.025 m and 8 K1 launches per frame;
   6. K3 (wavefront sweeps) against its plain twin at (G, iters) = (64, 192),
      (320, 512) and (512, 512), on random step costs and on a rooms-world
-     maze: exactly equal;
-  7. (two lines) rapid-mode exploration at full width (the configured 80 m global map at
-     0.25 m, G = 320, FitSlamConfig.preset("rapid")) through
+     maze, through the kernel its size rule picks and through the tiled
+     kernel (the first port's), and with the resident kernel's bands
+     exchanging rows every 2, 4 or 8 sweeps, and at ragged shapes through the
+     size rule's kernel and the grouped exchanges: exactly equal; all timed
+     at the main-path shapes, and at G = 64 the resident kernel as one block;
+  7. (two lines) rapid-mode exploration at full width (the configured 80 m
+     global map at 0.25 m, G = 320, FitSlamConfig.preset("rapid")) through
      ExplorationServer.tick() and SimNavInterface.step() for 300 steps, then
      the G = 64 configuration of bench_suite.py::bench_ablation held to
      tests/test_exploration_e2e.py's bounds.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
-pass of phase 5, K3 from the G = 320 run of phase 7), error and device times
-(CUDA events; level-0, window 1024x8192 and G = 320 shapes), the card's
-``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
+pass of phase 5, K3 from the G = 320 run of phase 7), error, device times
+(CUDA events; level-0, window 1024x8192 and G = 320 shapes) of the kernel,
+its plain twin, the first port's kernel where it is still in the tree (K3's
+tiled kernel) and a PyTorch yardstick where one exists, and its bound; the card's
+``nvidia-smi`` line; and as the last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile
+
+runs phase 1 and, instead of phases 2-7, a ``torch.profiler`` window over
+steps 120-159 of phase 7's G = 320 loop, twice: the device's busy share,
+kernel launches a step, K3's share of the kernel time and the top kernels by
+time.
 
 There is no CPU path: without a CUDA device the script exits with an error.
 """
@@ -52,7 +69,29 @@ N_BENCH_FRAMES = 60
 N_TIMED_PASSES = 3
 KERNELS = ("patch_gather", "hamming_top2", "wavefront_sweep")
 K3_CASES = ((64, 192), (320, 512), (512, 512))
+# (H, W, iters): non-square, one cell, one row, iters not a multiple of the
+# tiled kernel's 8, and 513 x 513, the first square grid past the resident size rule
+K3_RAGGED = ((333, 250, 300), (1, 1, 5), (1, 300, 9), (90, 90, 64), (100, 37, 21),
+             (513, 513, 37))
+# the G = 64 grid as one block of 256 threads (no cluster), timed beside the
+# size rule's 16-block cluster
+K3_ONE_BLOCK = (64, ("resident", 4, 16, 16, 1))
+# sweeps between two exchanges of the resident kernel's bands timed beside
+# the rule's exchange after every sweep (each with its halo rows)
+K3_GROUPS = (2, 4, 8)
+# (Na, Nb): the main path's window and stereo shapes, then shapes that are
+# not multiples of the tensor-core designs' 64-row and 32-column tiles
+K2_SHAPES = ((1024, 8192), (1024, 1024), (1, 1), (1, 513), (37, 513), (64, 33), (1000, 8000))
+K2_BLOCKS_PER_SM = (2, 4, 8)  # column splits of the shipped design timed at 1024 x 8192
 EXPLORE_STEPS = 300
+PROFILE_WINDOW = (120, 160)  # steps of the G = 320 loop that --profile traces
+# NVIDIA's published peaks of one H100 SXM at its 700 W limit (dense): a
+# kernel's bound is the larger of its bytes (each input read once, each output
+# written once) over the memory rate and its operations over their type's rate
+# (the float32 rate counts an FMA as two operations: instructions that do one,
+# as K3's adds and mins do, issue at no more than half of it)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
 # final coverage of bench_suite.py::bench_ablation's arrival-info + roadmap
 # method at step 299 (ABLATION_COVERAGE.csv), the reference's own run
 REFERENCE_ABLATION_COVERAGE = 0.930
@@ -89,6 +128,16 @@ def cuda_time_ms(fn, reps: int = 50, warmup: int = 5):
 
 def _us(t) -> str:
     return f"{t[0] * 1e3:.1f} us device / {t[1] * 1e3:.1f} us wall"
+
+
+def bound(n_bytes: float, n_ops: float = 0.0, op_type: str = "f32") -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak of their type, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 def phase_environment():
@@ -133,16 +182,32 @@ def phase_k1(dev):
         img = (torch.rand((h, w), generator=g) * 255.0).to(dev)
         xy = torch.stack([torch.randint(16, w - 16, (n,), generator=g),
                           torch.randint(16, h - 16, (n,), generator=g)], -1).to(torch.int32).to(dev)
+        # yardstick: one advanced-indexing call on the pre-padded image, its
+        # index tensors built outside the timing
+        padded = torch.nn.functional.pad(img, (20, 20, 20, 20))
+        off = torch.arange(40, device=dev)
+        rows = (xy[:, 1].long()[:, None] + off)[:, :, None]
+        cols = (xy[:, 0].long()[:, None] + off)[:, None, :]
+        if not torch.equal(padded[rows, cols], gather_patches(img, xy, 40)):
+            raise AssertionError(f"K1's indexing yardstick computes another function at {(h, w)}")
         times.append((cuda_time_ms(lambda: gather_patches(img, xy, 40)),
-                      cuda_time_ms(lambda: gather_patches_plain(img, xy, 40))))
-    per_level = "; ".join(f"{h}x{w} N={n}: kernel {_us(k)}, plain {_us(p)}"
-                          for ((h, w), n), (k, p) in zip(shapes, times))
+                      cuda_time_ms(lambda: gather_patches_plain(img, xy, 40)),
+                      cuda_time_ms(lambda: padded[rows, cols])))
+    per_level = "; ".join(f"{h}x{w} N={n}: kernel {_us(k)}, plain {_us(p)}, indexing {_us(x)}"
+                          for ((h, w), n), (k, p, x) in zip(shapes, times))
+    (h, w), n = shapes[0]
+    b = bound(h * w * 4 + n * 2 * 4 + n * 40 * 40 * 4)
     log(f"[2 K1] bit-equal to its twin at 4 level shapes (tolerance 0, max |d| {worst}); "
-        f"{per_level}")
-    return {"max_abs_err": worst, "ms": times[0][0][0], "plain_ms": times[0][1][0]}
+        f"{per_level}; bound at {h}x{w} N={n} {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']})")
+    return {"max_abs_err": worst, "ms": times[0][0][0], "plain_ms": times[0][1][0], **b,
+            "library_ms": times[0][2][0],
+            "library_call": "padded[rows, cols], index tensors built outside the timing"}
 
 
 def _k2_problem(dev, na=1024, nb=8192):
+    """Random descriptors with planted matches (half the rows, as far as the
+    columns allow), planted row ties (two equal columns, up to 64 rows) and
+    column ties (the last up to 32 rows repeat the first)."""
     from fitslam_tpu_torch.ops.orb import pack_descriptors
 
     rng = np.random.RandomState(2)
@@ -151,18 +216,22 @@ def _k2_problem(dev, na=1024, nb=8192):
     xy_a = rng.randint(0, 640, (na, 2)).astype(np.float32) + 0.5
     xy_b = rng.randint(0, 640, (nb, 2)).astype(np.float32) + 0.5
     perm = rng.permutation(nb)
-    for i in range(na // 2):                      # planted matches, 0-12 flipped bits
+    n_match = min(na // 2, nb // 2)
+    for i in range(n_match):                      # planted matches, 0-12 flipped bits
         j = perm[i]
         flip = rng.rand(256) < rng.uniform(0.0, 0.05)
         b[j] = np.where(flip, -a[i], a[i])
         xy_b[j] = xy_a[i] + rng.uniform(-3, 3, 2).astype(np.float32)
         xy_b[j, 0] = xy_a[i, 0] - rng.uniform(1.0, 60.0)   # positive disparity
-    for i in range(na // 2, na // 2 + 64):        # planted row ties: two equal columns
-        j1, j2 = perm[i], perm[i + 64]
+    n_tie = max(0, min(64, na - n_match, (nb - n_match) // 2))
+    for i in range(n_match, n_match + n_tie):     # planted row ties: two equal columns
+        j1, j2 = perm[i], perm[i + n_tie]
         b[j1] = b[j2] = a[i]
         xy_b[j1] = xy_b[j2] = xy_a[i] + np.float32(24.0) * np.array([1, 0], np.float32)
-    a[na - 32:] = a[:32]                          # planted column ties: duplicate rows
-    xy_a[na - 32:] = xy_a[:32]
+    n_dup = min(32, na // 2)
+    if n_dup:                                     # planted column ties: duplicate rows
+        a[na - n_dup:] = a[:n_dup]
+        xy_a[na - n_dup:] = xy_a[:n_dup]
     lvl_a = rng.randint(0, 4, na).astype(np.int32)
     lvl_b = rng.randint(0, 4, nb).astype(np.int32)
     va = rng.rand(na) < 0.95
@@ -176,41 +245,111 @@ def _k2_problem(dev, na=1024, nb=8192):
                 xy_a=t(xy_a), xy_b=t(xy_b), level_a=t(lvl_a), level_b=t(lvl_b))
 
 
+def _k2_bytes(na, nb, mode):
+    """Bytes K2 must move: packed descriptors, validity, positions (gated
+    modes), levels (stereo), the gate, and the four outputs."""
+    per_row = 32 + 1 + (8 if mode else 0) + (4 if mode == 2 else 0)
+    return (na + nb) * per_row + (8 if mode else 0) + 3 * 4 * na + 4 * nb
+
+
 def phase_k2(dev):
     from fitslam_tpu_torch.ops import pallas_matching as pm
 
-    p = _k2_problem(dev)
     gates = {
         pm.GATE_NONE: None,
         pm.GATE_WINDOW: torch.tensor([24.0 * 24.0, 0.0], device=dev),
         pm.GATE_STEREO: torch.tensor([2.0, 0.2 * 400.0 / 0.3], dtype=torch.float32, device=dev),
     }
-    worst, found = 0, {}
-    for mode, gate in gates.items():
-        got = pm.hamming_top2(**p, mode=mode, gate=gate)
-        ref = pm.hamming_top2_plain(**p, mode=mode, gate=gate)
-        torch.cuda.synchronize()
-        for f in pm.Top2._fields:
-            x, y = getattr(got, f), getattr(ref, f)
-            worst = max(worst, int((x - y).abs().max().item()))
-            if not torch.equal(x, y):
-                raise AssertionError(f"K2 mode {mode}: {f} differs from its twin in "
-                                     f"{int((x != y).sum())} entries")
-        found[mode] = int((ref.best < 64).sum())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, found, problems, plans = 0, {}, {}, []
+    for na, nb in K2_SHAPES:
+        p = problems[na, nb] = _k2_problem(dev, na, nb)
+        for mode, gate in gates.items():
+            ref = pm.hamming_top2_plain(**p, mode=mode, gate=gate)
+            for design in pm.DESIGNS:
+                got = pm.hamming_top2(**p, mode=mode, gate=gate, design=design)
+                torch.cuda.synchronize()
+                for f in pm.Top2._fields:
+                    x, y = getattr(got, f), getattr(ref, f)
+                    worst = max(worst, int((x - y).abs().max().item()))
+                    if not torch.equal(x, y):
+                        raise AssertionError(
+                            f"K2 {design} mode {mode} at {na}x{nb}: {f} differs from its "
+                            f"twin in {int((x != y).sum())} entries")
+            if (na, nb) == K2_SHAPES[0]:
+                found[mode] = int((ref.best < 64).sum())
+        plans.append(f"{na}x{nb} {tuple(pm.top2_plan(na, nb, sms))}")
     if found[pm.GATE_NONE] < 400:
         raise AssertionError(f"planted matches not found: {found}")
-    win = cuda_time_ms(lambda: pm.hamming_top2(**p, mode=pm.GATE_WINDOW, gate=gates[pm.GATE_WINDOW]))
-    win_plain = cuda_time_ms(lambda: pm.hamming_top2_plain(**p, mode=pm.GATE_WINDOW,
-                                                           gate=gates[pm.GATE_WINDOW]), reps=10)
-    ps = _k2_problem(dev, 1024, 1024)
-    st = cuda_time_ms(lambda: pm.hamming_top2(**ps, mode=pm.GATE_STEREO, gate=gates[pm.GATE_STEREO]))
-    st_plain = cuda_time_ms(lambda: pm.hamming_top2_plain(**ps, mode=pm.GATE_STEREO,
-                                                          gate=gates[pm.GATE_STEREO]), reps=10)
-    log(f"[3 K2] idx/best/second/col_best exactly equal to its twin in modes none/window/stereo "
-        f"at 1024x8192 (tolerance 0; rows with best < 64: {found}); window 1024x8192: kernel "
-        f"{_us(win)}, plain {_us(win_plain)}; stereo 1024x1024: kernel {_us(st)}, "
-        f"plain {_us(st_plain)}")
-    return {"max_abs_err": worst, "ms": win[0], "plain_ms": win_plain[0]}
+
+    def timed(na, nb, mode, design):
+        p, gate = problems[na, nb], gates[mode]
+        if design == "plain":
+            return cuda_time_ms(lambda: pm.hamming_top2_plain(**p, mode=mode, gate=gate), reps=10)
+        return cuda_time_ms(lambda: pm.hamming_top2(**p, mode=mode, gate=gate, design=design))
+
+    # both main-path shapes, every design, in turns (shipped, others, shipped)
+    order = [pm.DEFAULT_DESIGN] + [d for d in pm.DESIGNS if d != pm.DEFAULT_DESIGN]
+    cases = (((1024, 8192), pm.GATE_WINDOW, "window"), ((1024, 1024), pm.GATE_STEREO, "stereo"))
+    times = {}
+    for shape, mode, name in cases:
+        for design in order + order[::-1] + ["plain"]:
+            t = timed(*shape, mode, design)
+            times.setdefault((name, design), []).append(t)
+    dev_ms = {k: min(t[0] for t in v) for k, v in times.items()}
+    # the shipped design's column split at several blocks a SM, at both
+    # main-path shapes, each checked, in turns
+    split_ms = {}
+    for shape, mode, name in cases:
+        p, gate = problems[shape], gates[mode]
+        ref = pm.hamming_top2_plain(**p, mode=mode, gate=gate)
+        for k in K2_BLOCKS_PER_SM + K2_BLOCKS_PER_SM[::-1]:
+            plan = pm.top2_plan(*shape, sms, k)
+            if (name, k) not in split_ms:
+                got = pm.hamming_top2(**p, mode=mode, gate=gate, plan=plan)
+                if any(not torch.equal(getattr(got, f), getattr(ref, f))
+                       for f in pm.Top2._fields):
+                    raise AssertionError(f"K2 {pm.DEFAULT_DESIGN} differs from its twin "
+                                         f"with {plan} at {shape}")
+            t = cuda_time_ms(lambda: pm.hamming_top2(**p, mode=mode, gate=gate, plan=plan))
+            split_ms[name, k] = min(split_ms.get((name, k), t), t)
+    p = problems[1024, 8192]
+    # yardstick: the +-1 product at K2's core as one bf16 matmul; it is not
+    # the gated top-2 (no PyTorch call computes that)
+    a_pm1 = pm._unpack_pm1(p["a_bits"]).to(torch.bfloat16)
+    b_pm1 = pm._unpack_pm1(p["b_bits"]).to(torch.bfloat16).T.contiguous()
+    lib = cuda_time_ms(lambda: torch.matmul(a_pm1, b_pm1))
+    b_win = bound(_k2_bytes(1024, 8192, pm.GATE_WINDOW), 2 * 1024 * 8192 * 256, "int8")
+    b_st = bound(_k2_bytes(1024, 1024, pm.GATE_STEREO), 2 * 1024 * 1024 * 256, "int8")
+    label = {pm.DEFAULT_DESIGN: " (shipped)"}
+    parts = "; ".join(
+        f"{name} {'x'.join(map(str, shape))}: " + ", ".join(
+            f"{d}{label.get(d, '')} {dev_ms[name, d] * 1e3:.1f} us" for d in order + ["plain"])
+        for shape, _, name in cases)
+    log(f"[3 K2] idx/best/second/col_best exactly equal to its twin for every design "
+        f"({', '.join(pm.DESIGNS)}) in modes none/window/stereo at {', '.join(plans)} "
+        f"(Na x Nb (columns a block, column splits); tolerance 0; rows with best < 64 at "
+        f"1024x8192: {found}); device time, best of two turns: {parts}; bound window "
+        f"{b_win['bound_ms'] * 1e3:.2f} us ({b_win['bound_by']}), stereo "
+        f"{b_st['bound_ms'] * 1e3:.2f} us ({b_st['bound_by']}); {pm.DEFAULT_DESIGN} (default "
+        f"{pm.BLOCKS_PER_SM} blocks/SM) at " + "; ".join(
+            f"{name}: " + ", ".join(f"{k} blocks/SM {tuple(pm.top2_plan(*shape, sms, k))} "
+                                    f"{split_ms[name, k][0] * 1e3:.1f} us"
+                                    for k in K2_BLOCKS_PER_SM)
+            for shape, _, name in cases)
+        + f" (best of two turns, each exactly equal); bf16 +-1 matmul 1024x256 @ 256x8192 "
+        f"{_us(lib)}")
+    return {"max_abs_err": worst, "ms": dev_ms["window", pm.DEFAULT_DESIGN],
+            "plain_ms": dev_ms["window", "plain"], **b_win, "library_ms": lib[0],
+            "library_call": "bf16 +-1 torch.matmul (1024x256) @ (256x8192), the product "
+                            "at K2's core; no PyTorch call computes the gated top-2",
+            "shape": "window 1024x8192", "design": pm.DEFAULT_DESIGN,
+            "pr2_ms": None,
+            "pr2_ms_note": "the first port's K2 kernel is not in this tree; PERF.md gives its "
+                           "time from a run of the parent commit in the same call",
+            "stereo_ms": dev_ms["stereo", pm.DEFAULT_DESIGN],
+            "stereo_bound_ms": b_st["bound_ms"],
+            "design_ms": {f"{name} {d}": dev_ms[name, d] for _, _, name in cases for d in order}}
 
 
 def _reset_counts():
@@ -379,47 +518,115 @@ def _k3_problems(G):
     from fitslam_tpu_torch.ops.grid import LETHAL, GridSpec2D
     from fitslam_tpu_torch.ops.pallas_grid import BIG
 
-    rng = np.random.RandomState(G)
-    step = rng.uniform(0.25, 0.55, (G, G)).astype(np.float32)
-    passable = rng.rand(G, G) < 0.9
-    pot0 = np.full((G, G), BIG, np.float32)
-    pot0[0, 0] = 0.0
     maze = make_rooms_world(GridSpec2D(G, 0.25, 0.0, 0.0), seed=1)
     maze_pot0 = np.full((G, G), BIG, np.float32)
     maze_pot0[2, 2] = 0.0
-    return [(pot0, step, passable),
+    return [_k3_random(G, G, G, (0, 0)),
             (maze_pot0, np.full((G, G), 0.25, np.float32), maze != LETHAL)]
 
 
-def phase_k3(dev):
-    from fitslam_tpu_torch.ops.pallas_grid import BIG, wavefront_sweeps, wavefront_sweeps_plain
+def _k3_random(H, W, seed, goal):
+    """Random step costs in [0.25, 0.55] on 90 % passable cells, goal at ``goal``."""
+    from fitslam_tpu_torch.ops.pallas_grid import BIG
 
-    worst, parts, times = 0.0, [], {}
+    rng = np.random.RandomState(seed)
+    step = rng.uniform(0.25, 0.55, (H, W)).astype(np.float32)
+    passable = rng.rand(H, W) < 0.9
+    pot0 = np.full((H, W), BIG, np.float32)
+    pot0[goal] = 0.0
+    return pot0, step, passable
+
+
+def phase_k3(dev):
+    from fitslam_tpu_torch.ops import pallas_grid as pg
+
+    worst = 0.0
+
+    def check(pot0, step, passable, iters, plan, what):
+        nonlocal worst
+        got = pg.wavefront_sweeps(pot0, step, passable, iters, plan=plan)
+        ref = pg.wavefront_sweeps_plain(pot0, step, passable, iters)
+        torch.cuda.synchronize()
+        worst = max(worst, (got - ref).abs().max().item())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 {plan.design} differs from its twin at {what}: "
+                                 f"{int((got != ref).sum())} cells, max |d| "
+                                 f"{(got - ref).abs().max().item()}")
+        return ref
+
+    def grouped(H, W):
+        """The resident plans that exchange every K3_GROUPS sweeps, where
+        the grid has them."""
+        plans = []
+        for k in K3_GROUPS:
+            try:
+                plans.append((f"group {k}", pg.sweep_plan(H, W, k)))
+            except ValueError:
+                pass
+        return plans
+
+    parts, times = [], {}
     for G, iters in K3_CASES:
+        rule = pg.sweep_plan(G, G)
+        # beside the rule's kernel: the tiled one, the resident one with its
+        # bands exchanging every k sweeps, and at G = 64 as one block
+        others = [("tiled", pg.TILED)] + grouped(G, G)
+        if G == K3_ONE_BLOCK[0]:
+            others.append(("one block", pg.SweepPlan(*K3_ONE_BLOCK[1])))
         problems = [tuple(torch.as_tensor(a, device=dev) for a in p) for p in _k3_problems(G)]
         for k, (pot0, step, passable) in enumerate(problems):
-            got = wavefront_sweeps(pot0, step, passable, iters)
-            ref = wavefront_sweeps_plain(pot0, step, passable, iters)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K3 differs from its twin at G={G} iters={iters} "
-                                     f"problem {k}: {int((got != ref).sum())} cells, max |d| "
-                                     f"{(got - ref).abs().max().item()}")
-            worst = max(worst, (got - ref).abs().max().item())
-            reached = int((ref < BIG).sum())
+            for name, plan in [("rule", rule)] + others:
+                ref = check(pot0, step, passable, iters, plan,
+                            f"G={G} iters={iters} problem {k} ({name})")
+            reached = int((ref < pg.BIG).sum())
             if reached < G:
                 raise AssertionError(f"K3 problem {k} at G={G}: the wavefront reached "
                                      f"only {reached} cells")
         pot0, step, passable = problems[0]
-        kern = cuda_time_ms(lambda: wavefront_sweeps(pot0, step, passable, iters), reps=20)
-        plain = cuda_time_ms(lambda: wavefront_sweeps_plain(pot0, step, passable, iters),
+        # in turns: the rule's kernel, the others, the others backwards, the
+        # rule's again; then the twin
+        runs = {}
+        for name, plan in [("rule", rule)] + others + others[::-1] + [("rule", rule)]:
+            t = cuda_time_ms(lambda: pg.wavefront_sweeps(pot0, step, passable, iters, plan=plan),
+                             reps=20)
+            runs[name] = min(runs.get(name, t), t)
+        plain = cuda_time_ms(lambda: pg.wavefront_sweeps_plain(pot0, step, passable, iters),
                              reps=3, warmup=1)
-        times[G] = (kern, plain)
-        parts.append(f"G={G} iters={iters}: kernel {kern[0]:.3f} ms device / {kern[1]:.3f} ms "
-                     f"wall, plain {plain[0]:.2f} ms device / {plain[1]:.2f} ms wall")
+        # bytes: pot0, step, out (4 each) and passable (1); operations: 5 a
+        # cell and sweep (3 fminf over the neighbours, the add, the fminf
+        # with the old value)
+        b = bound(G * G * 13, 5 * G * G * iters, "f32")
+        times[G] = (runs, plain, b)
+        parts.append(f"G={G} iters={iters}: rule {rule.design} {tuple(rule[1:])} "
+                     f"{runs['rule'][0]:.4f} ms device / {runs['rule'][1]:.4f} ms wall, "
+                     + ", ".join(f"{name} {tuple(plan[1:]) if plan.design == 'resident' else ''} "
+                                 f"{runs[name][0]:.4f} / {runs[name][1]:.4f} ms"
+                                 for name, plan in others)
+                     + f", plain {plain[0]:.2f} / {plain[1]:.2f} ms, bound "
+                     f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']})")
+    ragged = []
+    for H, W, iters in K3_RAGGED:
+        pot0, step, passable = (torch.as_tensor(a, device=dev)
+                                for a in _k3_random(H, W, H * 7 + W, (H // 3, W - 1)))
+        for name, plan in [("rule", pg.sweep_plan(H, W))] + grouped(H, W):
+            check(pot0, step, passable, iters, plan, f"({H}, {W}) iters={iters} ({name})")
+            ragged.append(f"({H}, {W}, {iters}) {plan.design}"
+                          + (f" {tuple(plan[1:])}" if plan.design == "resident" else ""))
     log(f"[6 K3] exactly equal to its twin (tolerance 0, max |d| {worst}) on random and "
-        f"rooms-maze problems at {K3_CASES}; " + "; ".join(parts))
-    return {"max_abs_err": worst, "ms": times[320][0][0], "plain_ms": times[320][1][0]}
+        f"rooms-maze problems at {K3_CASES} through the size rule's kernel, the tiled one and "
+        f"the grouped exchanges, and at ragged (H, W, iters) through the size rule's and the "
+        f"grouped ones: {', '.join(ragged)} (resident plans: rows a thread, threads across, "
+        f"threads down, blocks of the cluster, sweeps between exchanges); device time, best "
+        f"of two turns: " + "; ".join(parts))
+    runs, plain, b = times[320]
+    return {"max_abs_err": worst, "ms": runs["rule"][0], "plain_ms": plain[0], **b,
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes min-plus sweeps",
+            "shape": "(320, 320), 512 sweeps", "design": pg.sweep_plan(320, 320).design,
+            "pr2_ms": runs["tiled"][0],
+            "pr2_ms_note": "the tiled kernel, the first port's, at the same shape",
+            "design_ms": {f"G={G} {name}": t[0] for G, (runs, _, _) in times.items()
+                          for name, t in runs.items()}}
 
 
 @contextmanager
@@ -436,10 +643,12 @@ def _torch_syncs(tally: dict, key: str):
     tally[key] += sum("synchroniz" in str(w.message) for w in caught)
 
 
-def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS):
+def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None):
     """The loop of tests/test_exploration_e2e.py through the port: reveal
     (3 m), a tick every second step, 4 controller steps per step. Returns a
-    dict of what the run measured."""
+    dict of what the run measured. With ``profile_window`` = (first, end) a
+    ``torch.profiler`` traces steps first..end-1 (returned as ``prof``, with
+    the window's host seconds as ``window_s``) and the run stops there."""
     from fitslam_tpu_torch.models import sim_robot as sim
     from fitslam_tpu_torch.models.exploration import ExplorationServer, ExplorationState
     from fitslam_tpu_torch.models.sim_nav import SimNavInterface
@@ -458,8 +667,20 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS):
     # per window (tick / controller): calls, seconds, K3 launches, torch syncs
     r = {f"{w}_{k}": 0 for w in ("tick", "ctrl") for k in ("n", "s", "k3", "torch_syncs")}
     _reset_counts()
-    steps = 0
+    steps, prof = 0, None
     for step in range(n_steps):
+        if profile_window and step == profile_window[0]:
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            r["window_s"] = time.perf_counter()
+        if profile_window and step == profile_window[1]:
+            torch.cuda.synchronize()
+            r["window_s"] = time.perf_counter() - r["window_s"]
+            prof.__exit__(None, None, None)
+            r["prof"] = prof
+            break
         state["explored"] = sim.reveal_sensor(
             spec, gt, state["explored"], upload(np.asarray(robot.xy, np.float32), dev),
             range_m=3.0)
@@ -580,6 +801,48 @@ def phase_explore(dev, n_steps=EXPLORE_STEPS):
     return k3_main
 
 
+def _kernel_times(prof):
+    """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        t, n = out.get(e.key, (0.0, 0))
+        out[e.key] = (t + us, n + e.count)
+    return out
+
+
+def phase_profile(dev):
+    """A torch.profiler window over steps PROFILE_WINDOW of phase 7's G = 320
+    loop, twice (the spread between two runs of the same work)."""
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    cfg = FitSlamConfig.preset("rapid")
+    spec = GridSpec2D(320, cfg.traversability.resolution, -40.0, -40.0)
+    n = PROFILE_WINDOW[1] - PROFILE_WINDOW[0]
+    for run in (1, 2):
+        r = explore(dev, spec, cfg, (-37.0, -37.0), PROFILE_WINDOW[1] + 1, PROFILE_WINDOW)
+        times = _kernel_times(r["prof"])
+        busy_us = sum(t for t, _ in times.values())
+        k3_us = sum(t for name, (t, _) in times.items() if "wavefront" in name)
+        k3_n = sum(c for name, (_, c) in times.items() if "wavefront" in name)
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:6]
+        log(f"[profile] run {run}, G=320 steps {PROFILE_WINDOW[0]}-{PROFILE_WINDOW[1] - 1}: window "
+            f"{r['window_s'] * 1e3:.1f} ms host, kernel time {busy_us / 1e3:.2f} ms (busy "
+            f"{busy_us / 1e4 / r['window_s']:.2f} %), "
+            f"{sum(c for _, c in times.values()) / n:.1f} kernel launches a step; K3 "
+            f"{k3_us / 1e3:.3f} ms in {k3_n} launches ({k3_us / max(busy_us, 1e-9) * 100:.1f} % "
+            f"of kernel time); ms/tick {r['tick_s'] / max(r['tick_n'], 1) * 1e3:.2f}, "
+            f"ms/controller step {r['ctrl_s'] / max(r['ctrl_n'], 1) * 1e3:.3f} over steps "
+            f"0-{PROFILE_WINDOW[1] - 1}; top kernels: "
+            + "; ".join(f"{name[:60]} {t / 1e3:.2f} ms x{c}" for name, (t, c) in top))
+        if busy_us <= 0:
+            raise AssertionError("the profiler recorded no device time")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
@@ -589,6 +852,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = phase_environment()
+    if sys.argv[1:] == ["--profile"]:
+        phase_profile(dev)
+        print(smi)
+        return 0
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     phase_golden(dev)

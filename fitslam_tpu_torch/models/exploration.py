@@ -131,7 +131,7 @@ class ExplorationServer:
         event_logger: Optional[EventLogger] = None,
         peer_goals: Optional[Callable[[], List[np.ndarray]]] = None,
         get_landmarks: Optional[Callable[[], Tuple]] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.cfg = cfg
         self.spec = spec

@@ -41,7 +41,7 @@ class Roadmap(NamedTuple):
         return self.xy.shape[0], self.adj.shape[1]
 
 
-def empty_roadmap(max_nodes: int, max_edges_per_node: int = 16, device="cpu") -> Roadmap:
+def empty_roadmap(max_nodes: int, max_edges_per_node: int = 16, device="cuda") -> Roadmap:
     N, E = max_nodes, max_edges_per_node
     return Roadmap(
         xy=torch.zeros((N, 2), dtype=torch.float32, device=device),

@@ -29,7 +29,7 @@ class SimNavInterface(NavInterface):
     def __init__(self, cfg: FitSlamConfig, spec: GridSpec2D, robot: DiffDriveRobot,
                  get_occupancy: Callable[[], torch.Tensor], dt: float = 0.1,
                  get_overlay: Optional[Callable[[], torch.Tensor]] = None,
-                 twist_mux=None, device="cpu"):
+                 twist_mux=None, device="cuda"):
         self.cfg = cfg
         self.spec = spec
         self.robot = robot

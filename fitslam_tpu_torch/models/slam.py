@@ -32,7 +32,8 @@ _NOT_PORTED = "is not ported yet (ROADMAP queue 1 item 10); set it to False"
 class StereoSlam:
     """Stereo SLAM system with fixed-capacity state on ``device``."""
 
-    def __init__(self, cfg: FitSlamConfig, device, event_logger: Optional[EventLogger] = None):
+    def __init__(self, cfg: FitSlamConfig, device="cuda",
+                 event_logger: Optional[EventLogger] = None):
         if cfg.loop.enabled:
             raise NotImplementedError(f"loop closing (cfg.loop.enabled) {_NOT_PORTED}")
         if cfg.tracking.reloc_enabled:

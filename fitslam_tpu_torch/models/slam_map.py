@@ -57,7 +57,7 @@ class SlamMap(NamedTuple):
 
 
 def empty_map(max_keyframes: int, max_landmarks: int, max_observations: int,
-              signature_dim: int = 256, device=None) -> SlamMap:
+              signature_dim: int = 256, device="cuda") -> SlamMap:
     K, L, O = max_keyframes, max_landmarks, max_observations
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)

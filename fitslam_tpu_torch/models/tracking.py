@@ -37,7 +37,7 @@ class TrackState(NamedTuple):
     map_id: torch.Tensor           # () int32 active Atlas map
 
 
-def init_track_state(device=None) -> TrackState:
+def init_track_state(device="cuda") -> TrackState:
     i32 = dict(dtype=torch.int32, device=device)
     return TrackState(
         T_cw=lie.SE3.identity(device=device),

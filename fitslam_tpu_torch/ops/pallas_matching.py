@@ -55,8 +55,14 @@ def _gate_mask(mode, xy_a, xy_b, level_a, level_b, gate):
 
 def hamming_top2_plain(a_bits, valid_a, b_bits, valid_b, mode=GATE_NONE,
                        xy_a=None, xy_b=None, level_a=None, level_b=None,
-                       gate=None) -> Top2:
-    """Plain PyTorch twin of the K2 kernel (same arguments and outputs)."""
+                       gate=None, col_chunk: Optional[int] = None) -> Top2:
+    """Plain PyTorch twin of the K2 kernel (same arguments and outputs).
+
+    ``col_chunk`` mirrors the kernel's column split: the rows' top-2 is taken
+    over each chunk of ``col_chunk`` columns and the chunks are merged in
+    order with the kernel's rule, best = min and second = min(seconds,
+    max(bests)) on (distance, column) keys. The result does not depend on
+    the chunk size."""
     na, nb = a_bits.shape[0], b_bits.shape[0]
     dot = _unpack_pm1(a_bits) @ _unpack_pm1(b_bits).T
     d = ((WORDS * 32 - dot) * 0.5).long()
@@ -67,12 +73,21 @@ def hamming_top2_plain(a_bits, valid_a, b_bits, valid_b, mode=GATE_NONE,
     d = torch.where(ok, torch.clamp(d, max=SENTINEL), SENTINEL)
     cols = torch.arange(nb, device=d.device)
     packed = d * nb + cols[None, :]
-    p1 = packed.min(dim=1).values
-    idx = p1 % nb
-    second = torch.where(cols[None, :] == idx[:, None], SENTINEL * nb, packed).min(dim=1).values // nb
+    best = second = None
+    for c0 in range(0, nb, col_chunk or nb):
+        chunk = packed[:, c0:c0 + (col_chunk or nb)]
+        p1 = chunk.min(dim=1).values
+        # the chunk's second key: its minimum once the best column is masked
+        # (a chunk of one column has none: SENTINEL at the largest column)
+        p2 = torch.where(chunk == p1[:, None], SENTINEL * nb + nb - 1, chunk).min(dim=1).values
+        if best is None:
+            best, second = p1, p2
+        else:
+            best, second = (torch.minimum(best, p1),
+                            torch.minimum(torch.minimum(second, p2), torch.maximum(best, p1)))
     rows = torch.arange(na, device=d.device)
     col_best = (d * na + rows[:, None]).min(dim=0).values % na
-    return Top2(idx.int(), (p1 // nb).int(), second.int(), col_best.int())
+    return Top2((best % nb).int(), (best // nb).int(), (second // nb).int(), col_best.int())
 
 
 def _check(a_bits, valid_a, b_bits, valid_b, mode, xy_a, xy_b, level_a, level_b, gate):
@@ -105,18 +120,50 @@ def _check(a_bits, valid_a, b_bits, valid_b, mode, xy_a, xy_b, level_a, level_b,
             if (t is None or tuple(t.shape) != (n,) or t.dtype != torch.int32
                     or not t.is_contiguous() or t.device != dev):
                 raise ValueError(f"{name}: expected contiguous int32 ({n},) on {dev}")
-    if na * (SENTINEL + 1) >= 2 ** 31:
-        raise ValueError("too many rows for 32-bit column keys")
+    if max(na, nb) + 64 > 2 ** 22:
+        raise ValueError("hamming_top2 keys hold row and column indices below 2**22")
+
+
+#: distance-product designs of csrc/hamming_top2.cu, by the number its C
+#: entry takes: the single-bit tensor-core product (the default, faster at
+#: both main-path shapes) and the +-1 int8 one, kept so that the two are timed
+#: side by side (chip_smoke.py phase 3)
+DESIGNS = {"b1": 0, "s8": 1}
+DEFAULT_DESIGN = "b1"
+KEY_SHIFT = 22   # keys are (distance << 22) | index
+
+
+class Top2Plan(NamedTuple):
+    cols_per_block: int   # a multiple of 32: 4 warps of 8-column tiles
+    splits: int           # blocks across the columns
+
+
+BLOCKS_PER_SM = 4   # the column split's target, as timed at both main-path shapes
+
+
+def top2_plan(na: int, nb: int, sms: int, blocks_per_sm: int = BLOCKS_PER_SM) -> Top2Plan:
+    """Column split of the tensor-core designs: 64 rows a block, and enough
+    column splits that about ``blocks_per_sm`` blocks run on each of ``sms``
+    SMs."""
+    row_blocks = -(-na // 64)
+    splits = max(1, min(-(-nb // 32), -(-blocks_per_sm * sms // row_blocks)))
+    cols = -(-nb // splits)
+    cols = -(-cols // 32) * 32
+    return Top2Plan(cols, -(-nb // cols))
 
 
 def hamming_top2(a_bits: torch.Tensor, valid_a: torch.Tensor, b_bits: torch.Tensor,
                  valid_b: torch.Tensor, mode: int = GATE_NONE,
                  xy_a: Optional[torch.Tensor] = None, xy_b: Optional[torch.Tensor] = None,
                  level_a: Optional[torch.Tensor] = None, level_b: Optional[torch.Tensor] = None,
-                 gate: Optional[torch.Tensor] = None) -> Top2:
+                 gate: Optional[torch.Tensor] = None, design: str = DEFAULT_DESIGN,
+                 plan: Optional[Top2Plan] = None) -> Top2:
     """Gated top-2 of packed-descriptor Hamming distances, rows of A against
     columns of B. ``gate`` is a float32 (2,) device tensor: [r^2, unused] for
-    the window gate, [row tolerance, max disparity] for the stereo gate."""
+    the window gate, [row tolerance, max disparity] for the stereo gate.
+    ``design`` picks the kernel's distance product (``DESIGNS``) and
+    ``plan`` overrides ``top2_plan``'s column split; all give the same
+    outputs."""
     _check(a_bits, valid_a, b_bits, valid_b, mode, xy_a, xy_b, level_a, level_b, gate)
     dev = a_bits.device
     if dev.type == "cpu":
@@ -124,17 +171,24 @@ def hamming_top2(a_bits: torch.Tensor, valid_a: torch.Tensor, b_bits: torch.Tens
                                   xy_a, xy_b, level_a, level_b, gate)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if design not in DESIGNS:
+        raise ValueError(f"unknown K2 design {design!r}, expected one of {sorted(DESIGNS)}")
     if a_bits.data_ptr() % 16 or b_bits.data_ptr() % 16:
         raise ValueError("packed descriptors must be 16-byte aligned")
     lib = load_kernel_library("hamming_top2")
     fn = lib.fitslam_hamming_top2
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
     fn.restype = ctypes.c_int
     na, nb = a_bits.shape[0], b_bits.shape[0]
+    plan = plan or top2_plan(na, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.cols_per_block % 32 or plan.cols_per_block * plan.splits < nb:
+        raise ValueError(f"hamming_top2: {plan} does not cover {nb} columns in 32-column steps")
     idx = torch.empty((na,), dtype=torch.int32, device=dev)
     best = torch.empty_like(idx)
     second = torch.empty_like(idx)
-    col_key = torch.full((nb,), 2 ** 31 - 1, dtype=torch.int32, device=dev)
+    part = torch.empty((plan.splits, na, 2), dtype=torch.int32, device=dev)
+    col_key = torch.full((nb,), -1, dtype=torch.int32, device=dev)   # 0xffffffff
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -143,11 +197,12 @@ def hamming_top2(a_bits: torch.Tensor, valid_a: torch.Tensor, b_bits: torch.Tens
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a_bits.data_ptr(), valid_a.data_ptr(), b_bits.data_ptr(), valid_b.data_ptr(),
                  na, nb, mode, ptr(xy_a), ptr(xy_b), ptr(level_a), ptr(level_b), ptr(gate),
+                 DESIGNS[design], plan.cols_per_block, plan.splits, part.data_ptr(),
                  idx.data_ptr(), best.data_ptr(), second.data_ptr(), col_key.data_ptr(), stream)
     check_cuda_error(err, "hamming_top2")
     hamming_top2.launches += 1
-    return Top2(idx, best, second, col_key % na)
+    return Top2(idx, best, second, col_key & ((1 << KEY_SHIFT) - 1))
 
 
-#: K2 launches on CUDA tensors since the count was last reset
+#: K2 calls on CUDA tensors since the count was last reset
 hamming_top2.launches = 0

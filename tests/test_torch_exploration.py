@@ -106,7 +106,7 @@ def test_one_tick_equals_reference(reference_state, with_goal):
                                     navs[0], get_robot_pose=lambda: pose)
     occ_t = torch.tensor(explored)
     tserver = tex.ExplorationServer(_test_config(FitSlamConfig), SPEC, lambda: occ_t, navs[1],
-                                    get_robot_pose=lambda: pose)
+                                    get_robot_pose=lambda: pose, device="cpu")
     for s, nav in zip((jserver, tserver), navs):
         s.blacklist_xy = list(ref_server.blacklist_xy)
         s.diag.ticks = ref_server.diag.ticks
@@ -143,10 +143,10 @@ def exploration_run():
     gt = torch.tensor(tsim.make_rooms_world(SPEC, seed=1))
     state = {"explored": torch.full((64, 64), tgrid.UNKNOWN, dtype=torch.uint8)}
     robot = tsim.DiffDriveRobot(x=-5.0, y=-5.0, yaw=0.0, v_max=1.2, w_max=2.5)
-    nav = SimNavInterface(cfg, SPEC, robot, lambda: state["explored"], dt=0.15)
+    nav = SimNavInterface(cfg, SPEC, robot, lambda: state["explored"], dt=0.15, device="cpu")
     nav.controller.max_omega = 2.0
     server = tex.ExplorationServer(cfg, SPEC, lambda: state["explored"], nav,
-                                   get_robot_pose=lambda: (robot.xy, robot.yaw))
+                                   get_robot_pose=lambda: (robot.xy, robot.yaw), device="cpu")
     coverage = []
     for step in range(300):
         state["explored"] = tsim.reveal_sensor(
@@ -209,9 +209,9 @@ def test_initialization_sequence_bootstrap():
     gt = torch.tensor(tsim.make_rooms_world(SPEC, seed=1))
     state = {"explored": torch.full((64, 64), tgrid.UNKNOWN, dtype=torch.uint8)}
     robot = tsim.DiffDriveRobot(x=-5.0, y=-5.0, yaw=0.0, v_max=1.0, w_max=3.0)
-    nav = SimNavInterface(cfg, SPEC, robot, lambda: state["explored"], dt=0.1)
+    nav = SimNavInterface(cfg, SPEC, robot, lambda: state["explored"], dt=0.1, device="cpu")
     server = tex.ExplorationServer(cfg, SPEC, lambda: state["explored"], nav,
-                                   get_robot_pose=lambda: (robot.xy, robot.yaw))
+                                   get_robot_pose=lambda: (robot.xy, robot.yaw), device="cpu")
     assert server.state == tex.ExplorationState.INITIALIZING
     spun, last, steps_in_init = 0.0, robot.yaw, 0
     for _ in range(200):
@@ -248,7 +248,8 @@ def test_fi_ladder_and_recovery_follow_the_reference():
         occ = wrap(explored)
         server = mod.ExplorationServer(cfg, spec, lambda occ=occ: occ, nav,
                                        get_robot_pose=lambda: pose,
-                                       fi_oracle=lambda xy, yaw, exhaustive: 10.0)
+                                       fi_oracle=lambda xy, yaw, exhaustive: 10.0,
+                                       **({} if mod is jex else {"device": "cpu"}))
         server._last_cleanup = 1e18
         states = [server.tick().name for _ in range(8)]
         wedge = np.asarray(server.wedge_age) if mod is jex else server.wedge_age.numpy()
@@ -270,6 +271,6 @@ def test_path_information_branch_raises_not_implemented():
     server = tex.ExplorationServer(cfg, SPEC, lambda: occ, _recording_nav(tex),
                                    get_robot_pose=lambda: (np.array([0.0, 0.0]), 0.0),
                                    get_landmarks=lambda: (np.zeros((1, 2)), np.zeros(1),
-                                                          np.zeros(1, bool)))
+                                                          np.zeros(1, bool)), device="cpu")
     with pytest.raises(NotImplementedError, match="fisher"):
         server.tick()

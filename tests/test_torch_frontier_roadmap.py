@@ -111,7 +111,7 @@ def _roadmaps(seed, max_nodes=128):
     occ, _ = _explored(seed)
     rng = np.random.RandomState(seed)
     rj = jrm.empty_roadmap(max_nodes, 16)
-    rt = trm.empty_roadmap(max_nodes, 16)
+    rt = trm.empty_roadmap(max_nodes, 16, device="cpu")
     kj, kt = jlie.SE3.identity((1,)), tlie.SE3.identity((1,))
     for b in range(6):
         cand = rng.uniform(-7, 7, (24, 2)).astype(np.float32)

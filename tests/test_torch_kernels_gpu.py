@@ -66,6 +66,58 @@ def test_k2_equal_to_twin(cuda, mode, na, nb):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
 
 
+def _k2_args(cuda, mode, na, nb, seed):
+    """Random descriptors with planted near-duplicates, row ties (equal
+    columns) and column ties (equal rows), positions and levels."""
+    rng = np.random.RandomState(seed)
+    a = np.where(rng.rand(na, 256) < 0.5, 1.0, -1.0).astype(np.float32)
+    b = np.where(rng.rand(nb, 256) < 0.5, 1.0, -1.0).astype(np.float32)
+    k = min(na, nb) // 2
+    b[:k] = np.where(rng.rand(k, 256) < 0.04, -a[:k], a[:k])
+    if nb >= 4:
+        b[nb - 2:] = b[:2]                       # row ties: equal columns
+    if na >= 4:
+        a[na - 2:] = a[:2]                       # column ties: equal rows
+    t = lambda x: torch.tensor(x, device=cuda)
+    return dict(
+        a_bits=orb.pack_descriptors(t(a).bfloat16()), valid_a=t(rng.rand(na) < 0.95),
+        b_bits=orb.pack_descriptors(t(b).bfloat16()), valid_b=t(rng.rand(nb) < 0.95),
+        mode=mode, xy_a=t(rng.uniform(0, 640, (na, 2)).astype(np.float32)),
+        xy_b=t(rng.uniform(0, 640, (nb, 2)).astype(np.float32)),
+        level_a=t(rng.randint(0, 4, na).astype(np.int32)),
+        level_b=t(rng.randint(0, 4, nb).astype(np.int32)),
+        gate=t(np.array([96.0 * 96.0 if mode == pm.GATE_WINDOW else 2.0, 266.7], np.float32)))
+
+
+@pytest.mark.parametrize("design", sorted(pm.DESIGNS))
+@pytest.mark.parametrize("mode", [pm.GATE_NONE, pm.GATE_WINDOW, pm.GATE_STEREO])
+@pytest.mark.parametrize("na,nb", [(1, 1), (1, 513), (37, 513), (1000, 8000), (64, 33)])
+def test_k2_ragged_equal_to_twin(cuda, design, mode, na, nb):
+    """Every K2 design at shapes that are not multiples of its tiles."""
+    args = _k2_args(cuda, mode, na, nb, na * 3 + nb + mode)
+    before = pm.hamming_top2.launches
+    got = pm.hamming_top2(**args, design=design)
+    torch.cuda.synchronize()
+    assert pm.hamming_top2.launches == before + 1
+    ref = pm.hamming_top2_plain(**args)
+    for f in pm.Top2._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 8])
+@pytest.mark.parametrize("na,nb", [(1024, 8192), (37, 513)])
+def test_k2_column_splits_equal_to_twin(cuda, blocks_per_sm, na, nb):
+    """The shipped design at other column splits than the default plan's:
+    the split-and-merge gives the same outputs."""
+    args = _k2_args(cuda, pm.GATE_WINDOW, na, nb, blocks_per_sm + na)
+    plan = pm.top2_plan(na, nb, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                        blocks_per_sm)
+    got = pm.hamming_top2(**args, plan=plan)
+    ref = pm.hamming_top2_plain(**args)
+    for f in pm.Top2._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
 @pytest.mark.parametrize("G,iters", [(64, 192), (100, 37), (320, 512), (512, 512), (17, 0)])
 def test_k3_equal_to_twin(cuda, G, iters):
     rng = np.random.RandomState(G + iters)
@@ -79,6 +131,50 @@ def test_k3_equal_to_twin(cuda, G, iters):
     assert pg.wavefront_sweeps.launches == before + 1
     assert torch.equal(got, pg.wavefront_sweeps_plain(pot0, step, passable, iters))
     assert pot0[G - 1, 0].item() == 0.0      # the input is not modified
+
+
+@pytest.mark.parametrize("H,W,iters,design", [
+    (64, 192, 37, "resident"), (333, 250, 300, "resident"), (1, 1, 5, "resident"),
+    (1, 300, 9, "resident"), (90, 90, 64, "resident"), (512, 512, 200, "resident"),
+    (513, 513, 37, "tiled"), (320, 320, 512, "tiled"), (64, 64, 192, "tiled"),
+    (100, 37, 21, "tiled")])
+def test_k3_ragged_equal_to_twin(cuda, H, W, iters, design):
+    """Both K3 kernels at ragged shapes: non-square grids, a single cell, a
+    grid just past the resident kernel's size rule, and sweep counts that
+    are not a multiple of the tiled kernel's 8; the main-path sizes also go
+    through the kernel the size rule does not pick for them."""
+    rng = np.random.RandomState(H * 7 + W + iters)
+    step = torch.tensor((rng.rand(H, W) * 0.3 + 0.25).astype(np.float32), device=cuda)
+    passable = torch.tensor(rng.rand(H, W) < 0.85, device=cuda)
+    pot0 = np.full((H, W), pg.BIG, np.float32)
+    pot0[rng.randint(H), rng.randint(W)] = 0.0
+    pot0[0, W - 1] = np.inf                      # above BIG on an edge cell
+    pot0 = torch.tensor(pot0, device=cuda)
+    ruled = pg.sweep_plan(H, W)
+    plan = ruled if design == ruled.design else pg.TILED
+    if design == "resident" and ruled.design != "resident":
+        pytest.fail(f"({H}, {W}) is not resident under the size rule: {ruled}")
+    before = pg.wavefront_sweeps.launches
+    got = pg.wavefront_sweeps(pot0, step, passable, iters, plan=plan)
+    torch.cuda.synchronize()
+    assert pg.wavefront_sweeps.launches == before + 1
+    assert torch.equal(got, pg.wavefront_sweeps_plain(pot0, step, passable, iters))
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("H,W,iters", [(320, 320, 512), (333, 250, 301), (90, 90, 63),
+                                       (100, 37, 21), (64, 64, 3)])
+def test_k3_grouped_exchange_equal_to_twin(cuda, H, W, iters, group):
+    """The resident kernel with its bands exchanging rows every ``group``
+    sweeps, sweep counts not a multiple of the group included."""
+    rng = np.random.RandomState(H + W + iters + group)
+    step = torch.tensor((rng.rand(H, W) * 0.3 + 0.25).astype(np.float32), device=cuda)
+    passable = torch.tensor(rng.rand(H, W) < 0.85, device=cuda)
+    pot0 = np.full((H, W), pg.BIG, np.float32)
+    pot0[rng.randint(H), rng.randint(W)] = 0.0
+    pot0 = torch.tensor(pot0, device=cuda)
+    got = pg.wavefront_sweeps(pot0, step, passable, iters, plan=pg.sweep_plan(H, W, group))
+    assert torch.equal(got, pg.wavefront_sweeps_plain(pot0, step, passable, iters))
 
 
 def test_k3_wavefront_potential_on_rooms_world(cuda):

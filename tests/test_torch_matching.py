@@ -164,6 +164,58 @@ def test_k2_twin_equals_pallas_interpret():
         assert np.all(g.numpy()[~live] == 512)
 
 
+@pytest.fixture(scope="module")
+def top2_chunk_problem():
+    """The interpret-mode reference problem, and the reference kernel's
+    outputs on it (no gate: the Pallas kernel has none)."""
+    p = _problem(5, na=128, nb=512)
+    ref = jax.tree.map(np.asarray, j_hamming_top2(
+        jnp.asarray(p["a"], jnp.bfloat16), jnp.asarray(p["va"]),
+        jnp.asarray(p["b"], jnp.bfloat16), jnp.asarray(p["vb"]), block=128, interpret=True))
+    return p, ref
+
+
+@pytest.mark.parametrize("chunk", [37, 96, 200])
+@pytest.mark.parametrize("mode", [pm.GATE_NONE, pm.GATE_WINDOW, pm.GATE_STEREO])
+def test_k2_twin_column_chunks_merge_exactly(top2_chunk_problem, mode, chunk):
+    """The kernel's split of the columns over blocks, mirrored by the twin's
+    ``col_chunk``: chunk sizes that do not divide Nb, with the problem's
+    planted row ties (equal columns) and column ties (equal rows), give the
+    unchunked twin's outputs exactly, and the reference kernel's in
+    interpret mode where it applies (no gate)."""
+    p, ref = top2_chunk_problem
+    gate = {pm.GATE_NONE: None, pm.GATE_WINDOW: torch.tensor([12.0 * 12.0, 0.0]),
+            pm.GATE_STEREO: torch.tensor([2.0, 266.0])}[mode]
+    args = (_bits(p["a"]), _t(p["va"]), _bits(p["b"]), _t(p["vb"]), mode,
+            _t(p["xy_a"]), _t(p["xy_b"]), _t(p["lvl_a"]), _t(p["lvl_b"]), gate)
+    whole = pm.hamming_top2_plain(*args)
+    got = pm.hamming_top2_plain(*args, col_chunk=chunk)
+    for f in pm.Top2._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), getattr(whole, f).numpy(), f)
+    assert int((whole.best < 64).sum()) > 10
+    if mode == pm.GATE_NONE:
+        np.testing.assert_array_equal(got.idx.numpy(), ref[0])
+        np.testing.assert_array_equal(got.col_best.numpy(), ref[3])
+        for g, r in ((got.best, ref[1]), (got.second, ref[2])):
+            live = r < 512
+            np.testing.assert_array_equal(g.numpy()[live], r[live].astype(np.int32))
+            assert np.all(g.numpy()[~live] == 512)
+
+
+def test_k2_plan_covers_the_columns():
+    """The column split of the tensor-core designs: whole 8-column tiles per
+    warp, every column in exactly one split, about four blocks per SM by
+    default."""
+    for na, nb in ((1024, 8192), (1024, 1024), (1, 1), (37, 513), (1000, 8000), (64, 33)):
+        for blocks_per_sm in (1, 2, 4, 8):
+            plan = pm.top2_plan(na, nb, 132, blocks_per_sm)
+            assert plan.cols_per_block % 32 == 0
+            assert (plan.cols_per_block * plan.splits >= nb
+                    > plan.cols_per_block * (plan.splits - 1))
+    assert pm.top2_plan(1024, 8192, 132) == pm.Top2Plan(256, 32)
+    assert pm.top2_plan(1024, 8192, 132, 8) == pm.Top2Plan(128, 64)
+
+
 def test_k2_wrapper_checks_and_uses_twin_on_cpu():
     p = _problem(6, na=64, nb=128)
     before = pm.hamming_top2.launches

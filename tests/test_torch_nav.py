@@ -94,6 +94,49 @@ def test_k3_twin_edges_are_big_not_wrapped():
                                 torch.ones(G, G, dtype=torch.bool), 0).equal(torch.tensor(pot0))
 
 
+@pytest.mark.parametrize("H,W", [(64, 64), (320, 320), (512, 512), (513, 513), (64, 192),
+                                 (333, 250), (1, 1), (1, 300), (90, 90), (100, 37), (1, 4096)])
+def test_k3_size_rule_covers_the_grid(H, W):
+    """K3's size rule: a resident plan covers the grid with one cluster of at
+    most 16 blocks of at most 512 threads; the main path's grids (64, 320,
+    512) are resident, and a grid past the rule (513) is tiled."""
+    plan = tpg.sweep_plan(H, W)
+    if plan.design == "tiled":
+        assert (H, W) in ((513, 513), (1, 4096))
+        return
+    assert (H, W) not in ((513, 513), (1, 4096))
+    assert plan.rows_per_thread in (4, 8)
+    assert plan.threads_x * plan.threads_y <= tpg.RESIDENT_MAX_THREADS
+    assert 1 <= plan.blocks <= tpg.RESIDENT_MAX_BLOCKS
+    assert 4 * plan.threads_x >= W > 4 * (plan.threads_x - 1)
+    band = plan.rows_per_thread * plan.threads_y
+    assert plan.blocks * band >= H > (plan.blocks - 1) * band
+    assert plan.blocks == min(H, tpg.RESIDENT_MAX_BLOCKS) or band > -(-H // 16)
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("H,W", [(64, 64), (320, 320), (512, 512), (333, 250), (90, 90),
+                                 (100, 37), (1, 300)])
+def test_k3_grouped_plan_covers_the_grid(H, W, group):
+    """A resident plan whose bands exchange rows every ``group`` sweeps:
+    each band's own rows (its rows less ``group`` halo rows on either side)
+    cover the grid with at least ``group`` rows a band, in one cluster of at
+    most 16 blocks of at most 512 threads; a grid whose bands cannot hold
+    the halo rows (512) or that is a single band (one row) has no such plan."""
+    if (H, W) in ((512, 512), (1, 300)):
+        with pytest.raises(ValueError):
+            tpg.sweep_plan(H, W, group)
+        return
+    plan = tpg.sweep_plan(H, W, group)
+    assert plan.design == "resident" and plan.group == group
+    assert plan.threads_x * plan.threads_y <= tpg.RESIDENT_MAX_THREADS
+    assert 1 < plan.blocks <= tpg.RESIDENT_MAX_BLOCKS
+    assert 4 * plan.threads_x >= W > 4 * (plan.threads_x - 1)
+    own = plan.rows_per_thread * plan.threads_y - 2 * group
+    assert own >= group
+    assert plan.blocks * own >= H > (plan.blocks - 1) * own
+
+
 def test_k3_wrapper_rejects_bad_inputs():
     z = torch.zeros(8, 8)
     with pytest.raises(ValueError):

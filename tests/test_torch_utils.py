@@ -153,3 +153,25 @@ def test_event_logger_keeps_tiers_up_to_its_own():
             pass
     assert log.stats["step"].count == 3 and log.stats["step"].mean_s >= 0.0
     assert "detail" not in log.stats
+
+
+@pytest.mark.parametrize("entry", ["models.slam:StereoSlam",
+                                   "models.exploration:ExplorationServer",
+                                   "models.sim_nav:SimNavInterface",
+                                   "models.roadmap:empty_roadmap",
+                                   "models.slam_map:empty_map",
+                                   "models.tracking:init_track_state"])
+def test_entry_points_default_to_cuda(entry):
+    """The port's entry points and the state they build run on the card
+    unless the caller passes device="cpu" (read from the signature, so no
+    card is needed)."""
+    import importlib
+    import inspect
+
+    import torch
+
+    module, name = entry.split(":")
+    fn = getattr(importlib.import_module(f"fitslam_tpu_torch.{module}"), name)
+    default = inspect.signature(fn).parameters["device"].default
+    assert default is not inspect.Parameter.empty, f"{entry} has no device default"
+    assert torch.device(default).type == "cuda"
