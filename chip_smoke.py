@@ -6,8 +6,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit, and
      the nvcc build of the three kernels (fitslam_tpu_torch/csrc/*.cu, one
      nvcc per source, started together);
-  2. K1 (patch gather) against its plain twin at the bench's four pyramid
-     level shapes, including clamped borders: bit-equal;
+  2. (two lines) K1's standalone patch gather against its plain twin at the
+     bench's four pyramid level shapes, including clamped borders: bit-equal;
+     then K1's fused ORB describe (gather, blur, orientation and rBRIEF in one
+     launch for all levels) against its twin at the bench's and the golden
+     level shapes, with keypoints at and past the border, a level without
+     keypoints, one keypoint and a width of 250: angle and descriptor
+     bit-equal; timed per eye at the bench's shapes beside the parent
+     commit's describe path (K1's gather per level + the PyTorch tail), in
+     turns;
   3. K2 (gated Hamming top-2), both designs of its distance product (the
      shipped single-bit tensor-core one and the +-1 int8 one), against its
      plain twin in all three gate modes at 1024 x 8192 and 1024 x 1024 with
@@ -15,11 +22,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
      designs timed at the main path's two shapes, and the shipped one at
      several column splits;
   4. golden replay of tests/data/corridor_seq through StereoSlam.process_frame:
-     ATE <= 0.025 m, 10-30 keyframes, both kernels launched;
+     ATE <= 0.025 m, 10-30 keyframes, the fused describe and K2 launched;
   5. bench size (640x480, 4 levels, 1024 features, 8192 landmarks, 60 frames
      rendered on the card from tests/data/bench_corridor_world.npz) through
      process_frame_async + finalize: one untimed pass, then three timed passes,
-     each held to ATE <= 0.025 m and 8 K1 launches per frame;
+     each held to ATE <= 0.025 m and 2 fused-describe launches per frame
+     (one per eye, no standalone gather); the descriptor bits in which the
+     fused kernel and the parent's describe path differ on the 120 images;
   6. K3 (wavefront sweeps) against its plain twin at (G, iters) = (64, 192),
      (320, 512) and (512, 512), on random step costs and on a rooms-world
      maze, through the kernel its size rule picks and through the tiled
@@ -34,23 +43,29 @@ Phases, each printing one line (any failure raises and exits non-zero):
      tests/test_exploration_e2e.py's bounds.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
 pass of phase 5, K3 from the G = 320 run of phase 7), error, device times
-(CUDA events; level-0, window 1024x8192 and G = 320 shapes) of the kernel,
+(CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
+shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
 tiled kernel) and a PyTorch yardstick where one exists, and its bound; the card's
 ``nvidia-smi`` line; and as the last line ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [--tree DIR]
 
-runs phase 1 and, instead of phases 2-7, a ``torch.profiler`` window over
-steps 120-159 of phase 7's G = 320 loop, twice: the device's busy share,
-kernel launches a step, K3's share of the kernel time and the top kernels by
-time.
+runs phase 1 and, instead of phases 2-7, ``torch.profiler`` windows, each
+twice: over bench frames 20-39 of phase 5's loop (kernel launches a frame,
+the device's busy share, the describe path's share and the top kernels by
+time) and over steps 120-159 of phase 7's G = 320 loop (busy share, kernel
+launches a step, K3's share of the kernel time, top kernels). ``--tree DIR``
+imports the package from DIR instead, e.g. the parent commit unpacked by
+``git archive``, for a before/after in one call.
 
 There is no CPU path: without a CUDA device the script exits with an error.
 """
 
+import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -84,6 +99,12 @@ K3_GROUPS = (2, 4, 8)
 K2_SHAPES = ((1024, 8192), (1024, 1024), (1, 1), (1, 513), (37, 513), (64, 33), (1000, 8000))
 K2_BLOCKS_PER_SM = (2, 4, 8)  # column splits of the shipped design timed at 1024 x 8192
 EXPLORE_STEPS = 300
+# ((H, W), keypoints) of each pyramid level: the bench's 4 levels (1024
+# features at 640x480) and the golden replay's 2 (512 features at 320x240)
+BENCH_LEVELS = (((480, 640), 546), ((336, 448), 273), ((240, 320), 137), ((168, 224), 68))
+GOLDEN_LEVELS = (((240, 320), 341), ((168, 224), 171))
+EDGE = 16  # ops/orb.py's border margin: no keypoint is extracted closer to the edge
+PROFILE_FRAMES = (20, 40)  # bench frames that --profile traces
 PROFILE_WINDOW = (120, 160)  # steps of the G = 320 loop that --profile traces
 # NVIDIA's published peaks of one H100 SXM at its 700 W limit (dense): a
 # kernel's bound is the larger of its bytes (each input read once, each output
@@ -202,6 +223,152 @@ def phase_k1(dev):
     return {"max_abs_err": worst, "ms": times[0][0][0], "plain_ms": times[0][1][0], **b,
             "library_ms": times[0][2][0],
             "library_call": "padded[rows, cols], index tensors built outside the timing"}
+
+
+def _describe_problem(dev, levels, seed, integer=False, border=False):
+    """Level images of random grey levels (8-bit with ``integer``) and their
+    keypoints inside the EDGE margin; with ``border`` the first of each level
+    sit on the margin (windows reach 4 pixels past the image), on the image's
+    edge and 30 pixels beyond it (windows clamped as lax.dynamic_slice does)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    imgs, xys = [], []
+    for (h, w), n in levels:
+        img = torch.rand((h, w), generator=g) * 255.0
+        imgs.append((img.floor() if integer else img).to(dev))
+        xy = torch.stack([torch.randint(EDGE, max(EDGE + 1, w - EDGE), (n,), generator=g),
+                          torch.randint(EDGE, max(EDGE + 1, h - EDGE), (n,), generator=g)], -1)
+        if border:
+            edge = torch.tensor([(EDGE, EDGE), (w - 1 - EDGE, h - 1 - EDGE), (EDGE, h - 1 - EDGE),
+                                 (w - 1 - EDGE, EDGE), (0, 0), (w - 1, h - 1), (-30, h // 2),
+                                 (w + 30, h // 2), (w // 2, -30), (w // 2, h + 30)])[:n]
+            xy[:len(edge)] = edge
+        xys.append(xy)
+    xy = torch.cat(xys).to(torch.int32).to(dev).contiguous()
+    return imgs, xy, [n for _, n in levels]
+
+
+def parent_describe(levels, xy, counts, consts):
+    """The parent commit's describe path, timed and compared beside the fused
+    kernel: per level K1's standalone gather, then ops/orb.py's PyTorch tail
+    as it was (bf16 round trip, the blur as two einsums, the crop, the
+    centroid as a float32 matmul, atan2, the bin, the pair gathers)."""
+    from fitslam_tpu_torch.ops.pallas_patches import gather_patches
+
+    blur, w_centroid, pairs_all = consts
+    angs, descs = [], []
+    for img, xy_l in zip(levels, torch.split(xy, list(counts))):
+        patches_g = gather_patches(img, xy_l, 40)
+        pg = patches_g.to(torch.bfloat16).float()
+        smooth = torch.einsum("npq,qs->nps", pg, blur)
+        smooth = torch.einsum("nps,pr->nrs", smooth, blur)
+        raw = patches_g[:, 4:36, 4:36]
+        m = raw.reshape(raw.shape[0], 1024) @ w_centroid
+        ang = torch.atan2(m[:, 1], m[:, 0])
+        bin_f = torch.round(ang / (2.0 * math.pi) * 30).long() % 30
+        flat = smooth.reshape(raw.shape[0], 1024).to(torch.bfloat16).float()
+        pairs = pairs_all[bin_f]
+        sel = torch.gather(flat, 1, pairs[:, :, 0]) - torch.gather(flat, 1, pairs[:, :, 1])
+        angs.append(ang)
+        descs.append(torch.where(sel < 0, 1.0, -1.0).to(torch.bfloat16))
+    return torch.cat(angs), torch.cat(descs)
+
+
+def parent_constants(dev):
+    from fitslam_tpu_torch.ops import orb
+
+    return (torch.as_tensor(orb._BLUR_MATRIX, device=dev).bfloat16().float(),
+            torch.as_tensor(orb._W_CENTROID, device=dev),
+            torch.as_tensor(orb._ROTATED_PAIRS, device=dev))
+
+
+def describe_bytes_ops(levels, n):
+    """Bytes (level images, keypoints, angle and bf16 descriptor out) and
+    operations a call of the fused describe must do: per keypoint the blur's
+    products and adds (40x32 + 32x32 outputs of 7 taps), its two bf16
+    roundings, the moments' products and adds and the 256 bit tests."""
+    n_bytes = sum(h * w * 4 for (h, w), _ in levels) + n * 8 + n * (4 + 256 * 2)
+    per_kp = (40 * 32 + 32 * 32) * 13 + (40 * 40 + 32 * 32) + 4 * 1024 + 256
+    return n_bytes, n * per_kp
+
+
+def phase_describe(dev):
+    from fitslam_tpu_torch.ops import orb
+
+    cases = [("bench", BENCH_LEVELS, dict(border=True)),
+             ("bench 8-bit", BENCH_LEVELS, dict(integer=True, border=True)),
+             ("golden", GOLDEN_LEVELS, dict(border=True)),
+             ("golden 8-bit", GOLDEN_LEVELS, dict(integer=True)),
+             ("empty level", (BENCH_LEVELS[0], (BENCH_LEVELS[1][0], 0)) + BENCH_LEVELS[2:], {}),
+             ("N=1", (((480, 640), 1),), {}),
+             ("width 250", (((333, 250), 300), ((235, 177), 60), ((100, 37), 5)),
+              dict(border=True))]
+    worst, cases_n = 0.0, []
+    for k, (name, levels, kw) in enumerate(cases):
+        imgs, xy, counts = _describe_problem(dev, levels, 10 + k, **kw)
+        before = orb.describe_keypoints.launches
+        got = orb.describe_keypoints(imgs, xy, counts)
+        torch.cuda.synchronize()
+        if orb.describe_keypoints.launches != before + 1:
+            raise AssertionError(f"fused describe did not count one launch at {name}")
+        ref = orb.describe_keypoints_plain(imgs, xy, counts)
+        worst = max(worst, (got[0] - ref[0]).abs().max().item(),
+                    (got[1].float() - ref[1].float()).abs().max().item())
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(
+                f"fused describe differs from its twin at {name}: "
+                f"{int((got[0] != ref[0]).sum())} angles, "
+                f"{int((got[1] != ref[1]).any(dim=1).sum())} descriptors")
+        cases_n.append(f"{name} N={xy.shape[0]}")
+        if name == "bench":
+            # the twin on the CPU against the twin on the card (atan2 of two libraries)
+            cpu = orb.describe_keypoints_plain([i.cpu() for i in imgs], xy.cpu(), counts)
+            twin_cpu = (f"card twin vs CPU twin at bench: {int((cpu[0] != ref[0].cpu()).sum())} "
+                        f"angles differ (max {(cpu[0] - ref[0].cpu()).abs().max().item():.1e} rad), "
+                        f"{int((cpu[1] != ref[1].cpu()).any(dim=1).sum())} descriptors")
+    # PyTorch's division by a CPU scalar on the card (the reciprocal) against
+    # a true division, over the angles atan2 returns
+    a = torch.linspace(-math.pi, math.pi, 2_000_001, device=dev)
+    true_div = a / torch.full_like(a, 2.0 * math.pi)
+    by_scalar = a / (2.0 * math.pi)
+    cpu_div = a.cpu() / (2.0 * math.pi)
+    division = (f"a / 2pi on the card by CPU scalar differs from the true division in "
+                f"{int((by_scalar != true_div).sum())} of {a.numel()} angles, the CPU's scalar "
+                f"division in {int((cpu_div != true_div.cpu()).sum())}")
+
+    # timing at the bench's shapes, keypoints inside the margin: the parent's
+    # path and the fused kernel in turns
+    imgs, xy, counts = _describe_problem(dev, BENCH_LEVELS, 99)
+    consts = parent_constants(dev)
+    fused = lambda: orb.describe_keypoints(imgs, xy, counts)
+    parent = lambda: parent_describe(imgs, xy, counts, consts)
+    p_out, f_out = parent(), fused()
+    rows = (p_out[1] != f_out[1]).any(dim=1)
+    times = {"parent": [], "fused": []}
+    for who in ("parent", "fused", "fused", "parent"):
+        # the parent's ~100 launches a call take the host ~3 ms: 10 calls
+        # keep the queue ahead of the device behind cuda_time_ms's spin
+        times[who].append(cuda_time_ms(fused) if who == "fused"
+                          else cuda_time_ms(parent, reps=10))
+    plain = cuda_time_ms(lambda: orb.describe_keypoints_plain(imgs, xy, counts), reps=10)
+    n_bytes, n_ops = describe_bytes_ops(BENCH_LEVELS, xy.shape[0])
+    b = bound(n_bytes, n_ops, "f32")
+    best = {k: min(t[0] for t in v) for k, v in times.items()}
+    log(f"[2 K1 describe] fused kernel bit-equal to its twin (angle and descriptor, "
+        f"tolerance 0) at {', '.join(cases_n)}; {twin_cpu}; {division}; per eye at the bench's 4 levels "
+        f"(N={xy.shape[0]}), parent / fused / fused / parent: "
+        + " / ".join(f"{_us(t)}" for t in (times['parent'][0], times['fused'][0],
+                                            times['fused'][1], times['parent'][1]))
+        + f"; plain twin {_us(plain)}; bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}: "
+        f"{n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} M operations); parent path vs fused on "
+        f"these inputs: {int(rows.sum())} descriptors ({int((p_out[1] != f_out[1]).sum())} "
+        f"bits) differ, max |d angle| {(p_out[0] - f_out[0]).abs().max().item():.1e} rad")
+    return {"max_abs_err": worst, "ms": best["fused"], "plain_ms": plain[0], **b,
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes the ORB describe",
+            "shape": "one eye, 4 levels 480x640..168x224, N=1024",
+            "parent_ms": best["parent"],
+            "parent_ms_note": "the parent commit's describe path (K1 gather a level + the "
+                              "PyTorch tail) at the same inputs, best of two turns"}
 
 
 def _k2_problem(dev, na=1024, nb=8192):
@@ -352,23 +519,25 @@ def phase_k2(dev):
             "design_ms": {f"{name} {d}": dev_ms[name, d] for _, _, name in cases for d in order}}
 
 
-def _reset_counts():
-    from fitslam_tpu_torch.ops.pallas_grid import wavefront_sweeps
-    from fitslam_tpu_torch.ops.pallas_matching import hamming_top2
-    from fitslam_tpu_torch.ops.pallas_patches import gather_patches
+def _counted():
+    """{kernel: its wrapper, which counts the kernel's launches}. A package
+    from before the fused describe (``--tree``) has no describe wrapper."""
+    from fitslam_tpu_torch.ops import orb, pallas_grid, pallas_matching, pallas_patches
 
-    gather_patches.launches = 0
-    hamming_top2.launches = 0
-    wavefront_sweeps.launches = 0
+    wrappers = {"gather": pallas_patches.gather_patches,
+                "describe": getattr(orb, "describe_keypoints", None),
+                "top2": pallas_matching.hamming_top2, "sweep": pallas_grid.wavefront_sweeps}
+    return {k: f for k, f in wrappers.items() if f is not None}
+
+
+def _reset_counts():
+    for f in _counted().values():
+        f.launches = 0
 
 
 def _counts():
-    """(K1, K2, K3) launches since the last reset."""
-    from fitslam_tpu_torch.ops.pallas_grid import wavefront_sweeps
-    from fitslam_tpu_torch.ops.pallas_matching import hamming_top2
-    from fitslam_tpu_torch.ops.pallas_patches import gather_patches
-
-    return gather_patches.launches, hamming_top2.launches, wavefront_sweeps.launches
+    """{kernel: launches since the last reset}."""
+    return {k: f.launches for k, f in _counted().items()}
 
 
 def phase_golden(dev):
@@ -400,18 +569,19 @@ def phase_golden(dev):
     _reset_counts()
     for l, r in frames:
         slam.process_frame(l, r)
-    k1, k2, _ = _counts()
+    n = _counts()
     gt = list(np.load(seq / "gt_poses.npy"))
     ate = ev.ate_rmse(slam.trajectory, gt)
     n_kf = int(slam.map.n_kf)
     log(f"[4 golden] corridor_seq 40 frames 320x240: ATE {ate:.4f} m, {n_kf} keyframes, "
-        f"K1 {k1} / K2 {k2} launches")
+        f"K1 describe {n['describe']} / K1 gather {n['gather']} / K2 {n['top2']} launches")
     if not ate <= ATE_BOUND_M:
         raise AssertionError(f"golden ATE {ate} > {ATE_BOUND_M}")
     if not GOLDEN_KF_RANGE[0] <= n_kf <= GOLDEN_KF_RANGE[1]:
         raise AssertionError(f"golden keyframes {n_kf} outside {GOLDEN_KF_RANGE}")
-    if k1 <= 0 or k2 <= 0:
-        raise AssertionError(f"kernels not launched on the main path: K1 {k1}, K2 {k2}")
+    if n["describe"] != 2 * len(frames) or n["gather"] or n["top2"] <= 0:
+        raise AssertionError(f"kernel launches on the main path: {n}, expected 2 fused "
+                             f"describes a frame, no gather and some K2")
 
 
 def bench_config():
@@ -432,15 +602,13 @@ def bench_config():
     )
 
 
-def phase_bench(dev):
+def bench_frames(dev, cfg):
+    """The bench's N_BENCH_FRAMES stereo pairs, rendered on the card, and the
+    ground-truth camera poses as float64 matrices."""
     from fitslam_tpu_torch.data import synthetic
-    from fitslam_tpu_torch.models import tracking as tr
-    from fitslam_tpu_torch.models.slam import StereoSlam
     from fitslam_tpu_torch.ops import lie
     from fitslam_tpu_torch.ops.geometry import Intrinsics
-    from fitslam_tpu_torch.utils import evaluation as ev
 
-    cfg = bench_config()
     W, H = cfg.camera.width, cfg.camera.height
     K = Intrinsics.from_config(cfg.camera, dev)
     world = synthetic.load_world(device=dev)
@@ -450,6 +618,43 @@ def phase_bench(dev):
               for i in range(N_BENCH_FRAMES)]
     gt = [m.cpu().numpy().astype(np.float64) for m in T_gt.matrix()]
     torch.cuda.synchronize()
+    return K, frames, gt
+
+
+def _describe_calls(frames, o):
+    """The describe calls of extract_orb on both eyes of every frame, as
+    (levels, xy, counts), recorded by wrapping the module's function."""
+    from fitslam_tpu_torch.ops import orb
+
+    calls, fused = [], orb.describe_keypoints
+
+    def record(levels, xy, counts):
+        calls.append((levels, xy, counts))
+        return fused(levels, xy, counts)
+
+    # the wrapper counts its launches on the module's name, ``record`` here
+    record.launches = fused.launches
+    orb.describe_keypoints = record
+    try:
+        for pair in frames:
+            for img in pair:
+                orb.extract_orb(img, o.num_features, o.num_levels, o.scale_factor,
+                                o.fast_threshold)
+    finally:
+        orb.describe_keypoints = fused
+        fused.launches = record.launches
+    return calls
+
+
+def phase_bench(dev):
+    from fitslam_tpu_torch.models import tracking as tr
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.ops import orb
+    from fitslam_tpu_torch.utils import evaluation as ev
+
+    cfg = bench_config()
+    W, H = cfg.camera.width, cfg.camera.height
+    K, frames, gt = bench_frames(dev, cfg)
 
     # untimed pass: first calls, and torch's own count of synchronising calls
     warm = StereoSlam(cfg, dev)
@@ -475,6 +680,19 @@ def phase_bench(dev):
     torch.cuda.synchronize()
     frontend_ms = (time.monotonic() - t0) / N_BENCH_FRAMES * 1e3
 
+    # the fused kernel against the parent commit's describe path on the
+    # keypoints of every bench image
+    consts = parent_constants(dev)
+    bits = rows = n_kp = 0
+    d_ang = 0.0
+    for levels, xy, counts in _describe_calls(frames, o):
+        fa, fd = orb.describe_keypoints(levels, xy, counts)
+        pa, pd = parent_describe(levels, xy, counts, consts)
+        bits += int((fd != pd).sum())
+        rows += int((fd != pd).any(dim=1).sum())
+        n_kp += xy.shape[0]
+        d_ang = max(d_ang, (fa - pa).abs().max().item())
+
     # timed passes: the host clock varies between passes (the step is
     # host-bound), so every pass is reported
     fps = []
@@ -487,14 +705,15 @@ def phase_bench(dev):
             slam.process_frame_async(l, r)
         torch.cuda.synchronize()
         fps.append(N_BENCH_FRAMES / (time.monotonic() - t0))
-        k1, k2, _ = _counts()
+        n = _counts()
         syncs = slam.host_syncs
         stats = slam.finalize()
         ate = ev.ate_rmse(slam.trajectory, gt)
         n_kf = int(slam.map.n_kf)
-        if k1 != 8 * N_BENCH_FRAMES:
-            raise AssertionError(f"K1 launched {k1} times, expected 8 per frame")
-        if k2 <= 0:
+        if n["describe"] != 2 * N_BENCH_FRAMES or n["gather"]:
+            raise AssertionError(f"K1 launches {n}: expected 2 fused describes a frame (one an "
+                                 f"eye) and no standalone gather")
+        if n["top2"] <= 0:
             raise AssertionError("K2 never launched on the main path")
         if not ate <= ATE_BOUND_M:
             raise AssertionError(f"bench ATE {ate} > {ATE_BOUND_M}")
@@ -504,9 +723,12 @@ def phase_bench(dev):
         f"{', '.join(f'{f:.2f}' for f in fps)} (frontend alone {frontend_ms:.2f} ms/frame), "
         f"ATE {ate:.4f} m, {n_kf} keyframes ({len(stats['keyframes'])} in outputs), "
         f"host syncs/frame {syncs / N_BENCH_FRAMES:.2f} (torch-reported syncs/frame in the "
-        f"untimed pass {torch_syncs / N_BENCH_FRAMES:.2f}), "
-        f"K1 {k1 / N_BENCH_FRAMES:.2f} / K2 {k2 / N_BENCH_FRAMES:.2f} launches/frame")
-    return k1, k2
+        f"untimed pass {torch_syncs / N_BENCH_FRAMES:.2f}), K1 fused describe "
+        f"{n['describe'] / N_BENCH_FRAMES:.2f} / K1 gather {n['gather'] / N_BENCH_FRAMES:.2f} / "
+        f"K2 {n['top2'] / N_BENCH_FRAMES:.2f} launches/frame; fused vs the parent's describe "
+        f"path on the {2 * N_BENCH_FRAMES} images: {bits} of {n_kp * 256} descriptor bits in "
+        f"{rows} of {n_kp} descriptors differ, max |d angle| {d_ang:.1e} rad")
+    return n
 
 
 def _k3_problems(G):
@@ -689,7 +911,7 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None
             if (w == "tick" and step % 2) or done:
                 continue
             torch.cuda.synchronize()
-            k3, t0 = _counts()[2], time.perf_counter()
+            k3, t0 = _counts()["sweep"], time.perf_counter()
             with _torch_syncs(r, f"{w}_torch_syncs"):
                 if w == "tick":
                     done = server.tick() == ExplorationState.DONE
@@ -699,7 +921,7 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None
             torch.cuda.synchronize()
             r[f"{w}_n"] += 1 if w == "tick" else 4
             r[f"{w}_s"] += time.perf_counter() - t0
-            r[f"{w}_k3"] += _counts()[2] - k3
+            r[f"{w}_k3"] += _counts()["sweep"] - k3
         coverage[step] = (state["explored"] != UNKNOWN).to(torch.float32).mean()
         steps = step + 1
         if done:
@@ -708,7 +930,7 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None
     explored = state["explored"].cpu().numpy()
     known = explored != UNKNOWN
     r.update(
-        steps=steps, coverage=cov, goals=server.diag.goals_sent, k3=_counts()[2],
+        steps=steps, coverage=cov, goals=server.diag.goals_sent, k3=_counts()["sweep"],
         agree=float((explored[known] == sim.make_rooms_world(spec, seed=1)[known]).mean()),
         plans=nav.plans, tick_syncs=server.host_syncs, ctrl_syncs=nav.host_syncs,
         nodes=int(server.roadmap.n_nodes))
@@ -814,14 +1036,58 @@ def _kernel_times(prof):
     return out
 
 
+def profile_bench(dev):
+    """A torch.profiler window over bench frames PROFILE_FRAMES of phase 5's
+    loop (process_frame_async), twice (the spread between two runs of the
+    same work): kernel launches a frame, the device's busy share, K1's share
+    (the fused describe, or the parent's gathers) and the top kernels."""
+    from fitslam_tpu_torch.models.slam import StereoSlam
+
+    cfg = bench_config()
+    _, frames, _ = bench_frames(dev, cfg)
+    warm = StereoSlam(cfg, dev)
+    for l, r in frames[:PROFILE_FRAMES[1]]:
+        warm.process_frame_async(l, r)
+    n = PROFILE_FRAMES[1] - PROFILE_FRAMES[0]
+    for run in (1, 2):
+        slam = StereoSlam(cfg, dev)
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        for i, (l, r) in enumerate(frames[:PROFILE_FRAMES[1]]):
+            if i == PROFILE_FRAMES[0]:
+                torch.cuda.synchronize()
+                prof.__enter__()
+                t0 = time.perf_counter()
+            slam.process_frame_async(l, r)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        prof.__exit__(None, None, None)
+        times = _kernel_times(prof)
+        busy_us = sum(t for t, _ in times.values())
+        k1 = [(t, c) for name, (t, c) in times.items()
+              if "describe" in name or "patch_gather" in name]
+        k1_us, k1_n = sum(t for t, _ in k1), sum(c for _, c in k1)
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
+        log(f"[profile] run {run}, bench frames {PROFILE_FRAMES[0]}-{PROFILE_FRAMES[1] - 1}: "
+            f"window {window_s * 1e3:.1f} ms host ({window_s / n * 1e3:.2f} ms a frame), kernel "
+            f"time {busy_us / 1e3:.3f} ms (busy {busy_us / 1e4 / window_s:.2f} %), "
+            f"{sum(c for _, c in times.values()) / n:.1f} kernel launches a frame; K1 "
+            f"{k1_us / 1e3:.4f} ms in {k1_n} launches ({k1_n / n:.1f} a frame); top kernels: "
+            + "; ".join(f"{name[:60]} {t / 1e3:.3f} ms x{c}" for name, (t, c) in top))
+        if busy_us <= 0:
+            raise AssertionError("the profiler recorded no device time")
+
+
 def phase_profile(dev):
-    """A torch.profiler window over steps PROFILE_WINDOW of phase 7's G = 320
-    loop, twice (the spread between two runs of the same work)."""
+    """torch.profiler windows over bench frames PROFILE_FRAMES, then over
+    steps PROFILE_WINDOW of phase 7's G = 320 loop, each twice (the spread
+    between two runs of the same work)."""
     from fitslam_tpu_torch.ops.grid import GridSpec2D
     from fitslam_tpu_torch.utils.config import FitSlamConfig
 
     cfg = FitSlamConfig.preset("rapid")
     spec = GridSpec2D(320, cfg.traversability.resolution, -40.0, -40.0)
+    profile_bench(dev)
     n = PROFILE_WINDOW[1] - PROFILE_WINDOW[0]
     for run in (1, 2):
         r = explore(dev, spec, cfg, (-37.0, -37.0), PROFILE_WINDOW[1] + 1, PROFILE_WINDOW)
@@ -844,31 +1110,45 @@ def phase_profile(dev):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA GPU.")
+    ap.add_argument("--profile", action="store_true",
+                    help="profiler windows over the bench and exploration loops instead")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="import fitslam_tpu_torch from this directory (with --profile)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    if args.tree != ROOT and not args.profile:
+        ap.error("--tree goes with --profile")
+    sys.path.insert(0, str(args.tree.resolve()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = phase_environment()
-    if sys.argv[1:] == ["--profile"]:
+    if args.profile:
         phase_profile(dev)
         print(smi)
         return 0
     k1 = phase_k1(dev)
+    k1d = phase_describe(dev)
     k2 = phase_k2(dev)
     phase_golden(dev)
-    n1, n2 = phase_bench(dev)
+    n = phase_bench(dev)
     k3 = phase_k3(dev)
     n3 = phase_explore(dev)
     kernels = [
         {"name": "K1 patch gather", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/patch_gather.cu",
-         "replaces": "fitslam_tpu/ops/pallas_patches.py:31", "launches": n1, **k1},
+         "replaces": "fitslam_tpu/ops/pallas_patches.py:31", "launches": n["gather"],
+         "launches_note": "off the main path since the fused describe; phase 2 holds it "
+                          "against its twin", **k1},
+        {"name": "K1 fused ORB describe", "route": "cuda",
+         "source": "fitslam_tpu_torch/csrc/patch_gather.cu",
+         "replaces": "fitslam_tpu/ops/pallas_patches.py:31", "launches": n["describe"], **k1d},
         {"name": "K2 gated Hamming top-2", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/hamming_top2.cu",
-         "replaces": "fitslam_tpu/ops/pallas_matching.py:31", "launches": n2, **k2},
+         "replaces": "fitslam_tpu/ops/pallas_matching.py:31", "launches": n["top2"], **k2},
         {"name": "K3 wavefront sweeps", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/wavefront_sweep.cu",
          "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": n3, **k3},

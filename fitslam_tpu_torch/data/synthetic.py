@@ -21,13 +21,13 @@ from fitslam_tpu_torch.ops.geometry import Intrinsics, project_stereo
 BENCH_WORLD = Path(__file__).resolve().parents[2] / "tests" / "data" / "bench_corridor_world.npz"
 
 
-def load_world(path=BENCH_WORLD, device=None) -> torch.Tensor:
+def load_world(path=BENCH_WORLD, device="cuda") -> torch.Tensor:
     """(L, 3) float32 world landmarks from an npz with a ``landmarks`` array."""
     return torch.as_tensor(np.load(path)["landmarks"].astype(np.float32), device=device)
 
 
 def straight_trajectory(num_frames: int, length: float = 30.0, height: float = 1.2,
-                        start_x: float = 2.0, device=None) -> lie.SE3:
+                        start_x: float = 2.0, device="cuda") -> lie.SE3:
     """Camera moving along +x looking forward (corridor sequence), T_wc."""
     x = torch.linspace(start_x, start_x + length, num_frames, device=device)
     t_wc = torch.stack([x, torch.zeros_like(x), torch.full_like(x, height)], dim=-1)

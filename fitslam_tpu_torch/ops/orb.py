@@ -1,30 +1,40 @@
 """ORB feature extraction (port of ``fitslam_tpu/ops/orb.py``).
 
-FAST-9/16 ring score, 3x3 non-max suppression, exact per-level top-k, one
-40x40 patch gather per keypoint (K1, ``ops/pallas_patches.py``), in-patch
-blur, intensity-centroid orientation, rotated BRIEF over 30 angle bins and a
-sub-pixel corner parabola. Outputs are fixed-shape ``FrameFeatures`` with
-validity masks, field for field as in the reference.
+FAST-9/16 ring score, 3x3 non-max suppression, exact per-level top-k and a
+sub-pixel corner parabola per pyramid level; then one describe call for the
+keypoints of all levels (``describe_keypoints``): the 40x40 window of each
+keypoint, intensity-centroid orientation, in-patch blur and rotated BRIEF
+over 30 angle bins. On a CUDA tensor that call is one launch of the fused
+kernel in ``csrc/patch_gather.cu`` (K1); on a CPU tensor it runs
+``describe_keypoints_plain``, its twin. Outputs are fixed-shape
+``FrameFeatures`` with validity masks, field for field as in the reference.
 
-Parity notes (ROADMAP faults F2, F3):
+Parity notes (ROADMAP faults F2, F3, F15):
 - top-k is a stable descending sort, which returns tied values in ascending
   index order as ``lax.top_k`` does; ``torch.topk`` does not;
 - the reference rounds the gathered patch, the blur matrix and the blurred
   patch to bfloat16 and multiplies with float32 accumulation; the port rounds
-  at the same three points and multiplies in float32.
+  at the same three points;
+- the twin fixes the order of every sum so that the kernel can repeat it bit
+  for bit: the blur is 7 taps in increasing offset, columns then rows, each
+  product and add rounded on its own; the moments are summed in float64 in
+  the kernel's thread-and-warp tree and rounded once to float32; the angle
+  bin divides by 2 pi with a true division.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fitslam_tpu_torch.ops import image as imops
-from fitslam_tpu_torch.ops.pallas_patches import gather_patches
+from fitslam_tpu_torch.ops.pallas_patches import gather_patches_plain
+from fitslam_tpu_torch.utils.cuda_build import check_cuda_error, load_kernel_library
 
 PATCH = 32
 HALF = PATCH // 2
@@ -140,6 +150,12 @@ def _make_blur_matrix(sigma: float = 2.0, radius: int = 3) -> np.ndarray:
 
 
 _BLUR_MATRIX = _make_blur_matrix()
+# the matrix's 7 taps (one column, offsets -3..3), rounded to bfloat16 as the
+# reference rounds the matrix; every column holds the same 7
+_BLUR_TAPS = tuple(torch.as_tensor(_BLUR_MATRIX[_GHALF - HALF - 3:_GHALF - HALF + 4, 0])
+                   .bfloat16().float().tolist())
+# the moments' summation tree: 4 pixels a thread, 32 threads a warp, 8 warps
+_THREADS = 256
 
 
 _device_constants: Dict[Tuple[str, torch.device], torch.Tensor] = {}
@@ -147,13 +163,12 @@ _device_constants: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 def _on_device(name: str, device) -> torch.Tensor:
     """A module constant on ``device``, uploaded once: a per-call upload would
-    be a synchronous host-to-device copy on every pyramid level."""
+    be a synchronous host-to-device copy on every call."""
     key = (name, torch.device(device))
     if key not in _device_constants:
-        value = {"pairs": _ROTATED_PAIRS, "w_centroid": _W_CENTROID,
-                 "blur_bf16": _BLUR_MATRIX}[name]
-        t = torch.as_tensor(value, device=device)
-        _device_constants[key] = t.bfloat16().float() if name == "blur_bf16" else t
+        value = {"pairs": _ROTATED_PAIRS.astype(np.int32),
+                 "w_centroid64": np.ascontiguousarray(_W_CENTROID.T, np.float64)}[name]
+        _device_constants[key] = torch.as_tensor(value, device=device)
     return _device_constants[key]
 
 
@@ -218,27 +233,132 @@ def top_k_stable(x: torch.Tensor, k: int):
 
 
 # ---------------------------------------------------------------------------
-# Patch-based orientation + descriptor
+# Patch-based orientation + descriptor (the twin of the fused kernel)
 # ---------------------------------------------------------------------------
 
 
 def _orientations(patches: torch.Tensor) -> torch.Tensor:
-    w = _on_device("w_centroid", patches.device)
-    m = patches.reshape(patches.shape[0], -1) @ w   # (N, 2) = [m10, m01]
+    """(N, 32, 32) raw patches -> (N,) intensity-centroid angles. The moments
+    are float64 sums in the kernel's order (thread t sums pixels t, t+256,
+    t+512, t+768; then lanes pair at distance 16..1 in each warp and warps
+    at 4..1), rounded once to float32."""
+    n = patches.shape[0]
+    w = _on_device("w_centroid64", patches.device)            # (2, 1024)
+    p = patches.reshape(n, 1, 4, _THREADS).double() * w.reshape(1, 2, 4, _THREADS)
+    s = ((p[:, :, 0] + p[:, :, 1]) + p[:, :, 2]) + p[:, :, 3]  # (N, 2, 256): a thread each
+    s = s.reshape(n, 2, _THREADS // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        s = s[..., :off] + s[..., off:2 * off]
+    s = s[..., 0]                                            # (N, 2, 8): a warp each
+    for off in (4, 2, 1):
+        s = s[..., :off] + s[..., off:2 * off]
+    m = s[..., 0].float()                                    # (N, 2) = [m10, m01]
     return torch.atan2(m[:, 1], m[:, 0])
 
 
-def _descriptors(patches_smooth: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
-    """rBRIEF: (N, 32, 32) blurred patches + angles -> (N, 256) ±1 bfloat16."""
-    n = patches_smooth.shape[0]
-    two_pi = 2.0 * math.pi
-    bin_f = torch.round(angle / two_pi * N_ANGLE_BINS).long() % N_ANGLE_BINS
-    flat = _bf16(patches_smooth.reshape(n, PATCH * PATCH))
-    pairs = _on_device("pairs", flat.device)[bin_f]  # (N, 256, 2)
-    a = torch.gather(flat, 1, pairs[:, :, 0])
-    b = torch.gather(flat, 1, pairs[:, :, 1])
+def _angle_bins(angle: torch.Tensor) -> torch.Tensor:
+    """round(angle / 2 pi * 30) mod 30. The divisor is a tensor: PyTorch
+    divides by a CPU scalar on CUDA through its reciprocal, on the CPU truly."""
+    q = angle / torch.full_like(angle, 2.0 * math.pi)
+    return torch.round(q * N_ANGLE_BINS).long() % N_ANGLE_BINS
+
+
+def _blur(window: torch.Tensor) -> torch.Tensor:
+    """(N, 40, 40) bf16-valued windows -> (N, 32, 32): the separable blur as
+    7 taps in increasing offset, columns then rows, each product and add a
+    float32 operation of its own."""
+    lo = _GHALF - HALF - 3
+    cols = window[:, :, lo:lo + PATCH] * _BLUR_TAPS[0]
+    for q in range(1, 7):
+        cols = cols + window[:, :, lo + q:lo + q + PATCH] * _BLUR_TAPS[q]
+    rows = cols[:, lo:lo + PATCH, :] * _BLUR_TAPS[0]
+    for q in range(1, 7):
+        rows = rows + cols[:, lo + q:lo + q + PATCH, :] * _BLUR_TAPS[q]
+    return rows
+
+
+def _descriptors(smooth: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """rBRIEF: (N, 1024) bf16-valued blurred patches + angle bins -> (N, 256)
+    ±1 bfloat16, +1 where the pair's point A is darker than point B."""
+    pairs = _on_device("pairs", smooth.device)[bins].long()  # (N, 256, 2)
+    a = torch.gather(smooth, 1, pairs[:, :, 0])
+    b = torch.gather(smooth, 1, pairs[:, :, 1])
     sel = a - b
     return torch.where(sel < 0, 1.0, -1.0).to(torch.bfloat16)
+
+
+def _check_describe(levels: Sequence[torch.Tensor], xy: torch.Tensor,
+                    counts: Sequence[int]) -> None:
+    if not 1 <= len(levels) <= 8 or len(counts) != len(levels):
+        raise ValueError(f"1-8 levels with a keypoint count each, got {len(levels)} levels "
+                         f"and {len(counts)} counts")
+    for img in levels:
+        if (img.dim() != 2 or img.dtype != torch.float32 or not img.is_contiguous()
+                or img.device != xy.device):
+            raise ValueError(f"levels must be contiguous (H, W) float32 tensors on the "
+                             f"keypoints' device, got {tuple(img.shape)} {img.dtype} {img.device}")
+    if (xy.dim() != 2 or xy.shape[1] != 2 or xy.dtype != torch.int32
+            or not xy.is_contiguous()):
+        raise ValueError(f"xy must be a contiguous (N, 2) int32 tensor, got "
+                         f"{tuple(xy.shape)} {xy.dtype}")
+    if min(counts) < 0 or sum(counts) != xy.shape[0]:
+        raise ValueError(f"keypoint counts {list(counts)} do not add up to N={xy.shape[0]}")
+
+
+def describe_keypoints_plain(levels: Sequence[torch.Tensor], xy: torch.Tensor,
+                             counts: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The twin of the fused kernel: the keypoints of all levels (``counts[l]``
+    of level ``l``, concatenated in level order in ``xy``) -> (angle (N,)
+    float32, desc (N, 256) ±1 bfloat16)."""
+    _check_describe(levels, xy, counts)
+    parts = torch.split(xy, list(counts))
+    window = torch.cat([gather_patches_plain(img, p, GPATCH) for img, p in zip(levels, parts)])
+    crop = _GHALF - HALF
+    angle = _orientations(window[:, crop:crop + PATCH, crop:crop + PATCH])
+    smooth = _bf16(_blur(_bf16(window))).reshape(-1, PATCH * PATCH)
+    return angle, _descriptors(smooth, _angle_bins(angle))
+
+
+def describe_keypoints(levels: Sequence[torch.Tensor], xy: torch.Tensor,
+                       counts: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Angle and rBRIEF descriptor of the keypoints of all pyramid levels.
+
+    ``levels``: the level images, (H_l, W_l) float32; ``xy``: (N, 2) int32
+    integer (x, y) of ``counts[l]`` keypoints of each level ``l``, in level
+    order. Returns (angle (N,) float32, desc (N, 256) ±1 bfloat16) in that
+    order. One launch of the fused kernel on a CUDA tensor (a build or launch
+    failure raises), the plain twin on a CPU tensor."""
+    _check_describe(levels, xy, counts)
+    if xy.device.type == "cpu":
+        return describe_keypoints_plain(levels, xy, counts)
+    if xy.device.type != "cuda":
+        raise ValueError(f"unsupported device {xy.device}")
+    lib = load_kernel_library("patch_gather")
+    fn = lib.fitslam_orb_describe
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n_lv, n = len(levels), xy.shape[0]
+    imgs = (ctypes.c_void_p * n_lv)(*(img.data_ptr() for img in levels))
+    hs = (ctypes.c_int * n_lv)(*(img.shape[0] for img in levels))
+    ws = (ctypes.c_int * n_lv)(*(img.shape[1] for img in levels))
+    cnt = (ctypes.c_int * n_lv)(*counts)
+    taps = (ctypes.c_float * 7)(*_BLUR_TAPS)
+    pairs = _on_device("pairs", xy.device)
+    angle = torch.empty((n,), dtype=torch.float32, device=xy.device)
+    desc = torch.empty((n, N_PAIRS), dtype=torch.bfloat16, device=xy.device)
+    with torch.cuda.device(xy.device):
+        stream = torch.cuda.current_stream(xy.device).cuda_stream
+        err = fn(n_lv, imgs, hs, ws, cnt, xy.data_ptr(), taps, pairs.data_ptr(),
+                 angle.data_ptr(), desc.data_ptr(), stream)
+    check_cuda_error(err, "orb_describe")
+    describe_keypoints.launches += int(n > 0)
+    return angle, desc
+
+
+#: fused-kernel launches on CUDA tensors since the count was last reset
+describe_keypoints.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +383,12 @@ def extract_orb(
 ) -> FrameFeatures:
     """Extract ORB features from a grayscale float32 image (H, W) in [0, 255]."""
     dev = img.device
-    pyr = imops.build_pyramid(img, num_levels, scale_factor)
+    pyr = [level.contiguous() for level in imops.build_pyramid(img, num_levels, scale_factor)]
     counts = _level_feature_counts(num_features, num_levels, scale_factor)
     h0, w0 = img.shape[-2:]
-    blur = _on_device("blur_bf16", dev)
 
-    xs, ys, resp, angs, lvls, descs, valids = [], [], [], [], [], [], []
+    kps, xs, ys, resp, lvls, valids = [], [], [], [], [], []
     for lvl, (level_img, k_lvl) in enumerate(zip(pyr, counts)):
-        level_img = level_img.contiguous()
         h, w = level_img.shape[-2:]
         sx = w0 / w
         sy = h0 / h
@@ -283,15 +401,7 @@ def extract_orb(
         yy = (top_idx // w).to(torch.int32)
         xx = (top_idx % w).to(torch.int32)
         ok = top_scores > 0.0
-
-        patches_g = gather_patches(level_img, torch.stack([xx, yy], dim=-1).contiguous(), GPATCH)
-        pg = _bf16(patches_g)
-        patches_smooth = torch.einsum("npq,qs->nps", pg, blur)
-        patches_smooth = torch.einsum("nps,pr->nrs", patches_smooth, blur)
-        crop = GPATCH // 2 - HALF
-        patches_raw = patches_g[:, crop:crop + PATCH, crop:crop + PATCH]
-        ang = _orientations(patches_raw)
-        desc = _descriptors(patches_smooth, ang)
+        kps.append(torch.stack([xx, yy], dim=-1))
 
         yl, xl = yy.long(), xx.long()
         sxp = score_raw[yl, torch.clamp(xl + 1, max=w - 1)]
@@ -311,16 +421,13 @@ def extract_orb(
         xs.append((xx.float() + ddx) * sx)
         ys.append((yy.float() + ddy) * sy)
         resp.append(top_scores)
-        angs.append(ang)
         lvls.append(torch.full((k_lvl,), lvl, dtype=torch.int32, device=dev))
-        descs.append(desc)
         valids.append(ok)
 
+    angle, desc = describe_keypoints(pyr, torch.cat(kps).contiguous(), [k.shape[0] for k in kps])
     xy = torch.stack([torch.cat(xs), torch.cat(ys)], dim=-1)
     response = torch.cat(resp)
-    angle = torch.cat(angs)
     level = torch.cat(lvls)
-    desc = torch.cat(descs, dim=0)
     valid = torch.cat(valids)
 
     n = xy.shape[0]

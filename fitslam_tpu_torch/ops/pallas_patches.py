@@ -4,7 +4,9 @@ the module keeps the reference's name so the pair maps file to file).
 ``gather_patches`` launches the hand-written CUDA kernel
 ``csrc/patch_gather.cu`` on a CUDA tensor and runs ``gather_patches_plain``,
 its plain PyTorch twin, on a CPU tensor. There is no fallback between the
-two: a build or launch failure raises.
+two: a build or launch failure raises. ``extract_orb`` no longer calls it:
+its main path is the fused describe in the same source
+(``ops/orb.py::describe_keypoints``), which shares the window placement.
 """
 
 from __future__ import annotations

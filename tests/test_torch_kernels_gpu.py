@@ -5,10 +5,12 @@ they carry the ``gpu`` marker and skip without CUDA. On the card:
 
     python3 -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: none. K1 is a copy (bit-equal); K2's outputs are integers
-(exactly equal); K3 is min and one float32 add per cell and sweep, in the
-same Jacobi order as its twin (exactly equal).
+Tolerance: none. K1's gather is a copy (bit-equal); K1's fused describe sums
+in the order its twin fixes (angle and descriptor bit-equal); K2's outputs
+are integers (exactly equal); K3 is min and one float32 add per cell and
+sweep, in the same Jacobi order as its twin (exactly equal).
 """
+
 
 import numpy as np
 import pytest
@@ -41,6 +43,52 @@ def test_k1_bit_equal_to_twin(cuda, hw, n):
     got = pp.gather_patches(img, xy, 40)
     assert pp.gather_patches.launches == before + 1
     assert torch.equal(got, pp.gather_patches_plain(img, xy, 40))
+
+
+# ((H, W), keypoints) a level: the bench's 4 levels, the golden replay's 2,
+# one keypoint, a level without keypoints, and a width that is not a multiple of 8
+DESCRIBE_CASES = {
+    "bench": (((480, 640), 546), ((336, 448), 273), ((240, 320), 137), ((168, 224), 68)),
+    "golden": (((240, 320), 341), ((168, 224), 171)),
+    "one keypoint": (((480, 640), 1),),
+    "empty level": (((240, 320), 50), ((168, 224), 0), ((120, 160), 20)),
+    "width 250": (((333, 250), 300), ((235, 177), 60), ((100, 37), 5)),
+}
+
+
+def _describe_inputs(cuda, levels, seed, border, integer):
+    """Random grey-level images and keypoints inside the EDGE = 16 margin;
+    with ``border``, the first keypoints of each level sit on the margin,
+    on the image's edge and 30 pixels past it."""
+    rng = np.random.RandomState(seed)
+    imgs, xys = [], []
+    for (h, w), n in levels:
+        img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+        imgs.append(torch.tensor(np.floor(img) if integer else img, device=cuda))
+        xy = np.stack([rng.randint(16, max(17, w - 16), n), rng.randint(16, max(17, h - 16), n)], -1)
+        if border:
+            edge = np.array([(16, 16), (w - 17, h - 17), (0, 0), (w - 1, h - 1), (-30, h // 2),
+                             (w + 30, h // 2), (w // 2, -30), (w // 2, h + 30)])[:n]
+            xy[:len(edge)] = edge
+        xys.append(xy.reshape(-1, 2))
+    return imgs, torch.tensor(np.concatenate(xys).astype(np.int32), device=cuda)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("border", [False, True])
+@pytest.mark.parametrize("case", sorted(DESCRIBE_CASES))
+def test_k1_describe_bit_equal_to_twin(cuda, case, border, integer):
+    levels = DESCRIBE_CASES[case]
+    imgs, xy = _describe_inputs(cuda, levels, len(case) * 7 + border + 2 * integer, border, integer)
+    counts = [n for _, n in levels]
+    before = orb.describe_keypoints.launches
+    ang, desc = orb.describe_keypoints(imgs, xy, counts)
+    torch.cuda.synchronize()
+    assert orb.describe_keypoints.launches == before + 1
+    ref_ang, ref_desc = orb.describe_keypoints_plain(imgs, xy, counts)
+    assert ang.shape == (xy.shape[0],) and desc.shape == (xy.shape[0], 256)
+    assert torch.equal(ang, ref_ang)
+    assert torch.equal(desc, ref_desc)
 
 
 @pytest.mark.parametrize("mode", [pm.GATE_NONE, pm.GATE_WINDOW, pm.GATE_STEREO])

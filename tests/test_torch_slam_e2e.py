@@ -166,7 +166,7 @@ def test_bench_world_file_regenerates():
     world = jsyn.corridor_world(jax.random.PRNGKey(42), num=3000, length=40.0, width=5.0)
     committed = np.load(ROOT / "tests" / "data" / "bench_corridor_world.npz")["landmarks"]
     np.testing.assert_array_equal(committed, np.asarray(world.landmarks))
-    np.testing.assert_array_equal(tsyn.load_world().numpy(), committed)
+    np.testing.assert_array_equal(tsyn.load_world(device="cpu").numpy(), committed)
 
 
 def test_render_stereo_and_trajectory_match_reference():
@@ -177,7 +177,7 @@ def test_render_stereo_and_trajectory_match_reference():
     Kt = Intrinsics(*(torch.tensor(v, dtype=torch.float32) for v in cam.values()))
     world = np.load(ROOT / "tests" / "data" / "bench_corridor_world.npz")["landmarks"]
     Tj = jsyn.straight_trajectory(8, length=1.2, height=1.2, start_x=0.5)
-    Tt = tsyn.straight_trajectory(8, length=1.2, height=1.2, start_x=0.5)
+    Tt = tsyn.straight_trajectory(8, length=1.2, height=1.2, start_x=0.5, device="cpu")
     np.testing.assert_allclose(Tt.t.numpy(), np.asarray(Tj.t), atol=1e-5)
     np.testing.assert_array_equal(Tt.R.numpy(), np.asarray(Tj.R))
     lj, rj = jsyn.render_stereo(Kj, jsyn.World(world), jlie.SE3(Tj.R[5], Tj.t[5]), width=320, height=240)

@@ -160,7 +160,9 @@ def test_event_logger_keeps_tiers_up_to_its_own():
                                    "models.sim_nav:SimNavInterface",
                                    "models.roadmap:empty_roadmap",
                                    "models.slam_map:empty_map",
-                                   "models.tracking:init_track_state"])
+                                   "models.tracking:init_track_state",
+                                   "data.synthetic:load_world",
+                                   "data.synthetic:straight_trajectory"])
 def test_entry_points_default_to_cuda(entry):
     """The port's entry points and the state they build run on the card
     unless the caller passes device="cpu" (read from the signature, so no
