@@ -40,9 +40,30 @@ Phases, each printing one line (any failure raises and exits non-zero):
      global map at 0.25 m, G = 320, FitSlamConfig.preset("rapid")) through
      ExplorationServer.tick() and SimNavInterface.step() for 300 steps, then
      the G = 64 configuration of bench_suite.py::bench_ablation held to
-     tests/test_exploration_e2e.py's bounds.
+     tests/test_exploration_e2e.py's bounds;
+  8. (two lines) the full active-SLAM loop through ActiveSlamSystem
+     (bench_suite.py::bench_active_slam: 640x480, 4 levels, 1024 features,
+     48 keyframes / 3072 landmarks, 48 clouds of 4096 points, G = 64 at
+     0.25 m over the rooms world of seed 3, a tick every 4 frames, FI
+     threshold 5), run on from the bench's 80 frames to the 150 of
+     tests/test_active_slam_e2e.py: frames, ticks, keyframes, world-anchored
+     ATE, coverage, goals, FI rejections and the largest FI value, and at
+     frame 80 beside the reference's own figures; K1/K2/K3 launches and host
+     syncs (the engine's count, and torch's with the CUDA-event waits it
+     does not report) a frame, tick and controller step, host ms of each, grid fusion
+     kernel time, launches and host time a keyframe; the run's clouds fused twice on the card and once
+     on the CPU (identical, and the same occupancy), and the card/CPU gap of
+     pose_information and path_information; held to
+     tests/test_active_slam_e2e.py's bounds. Then bench_suite.py::
+     bench_marsyard's loop (320x240, 150 frames) held to
+     tests/test_marsyard_e2e.py's bounds;
+  9. the RGB-D arc of tests/test_rgbd_e2e.py at 640x480, 4 levels and 1024
+     features (process_rgbd_frame, depth_image_to_cloud a keyframe,
+     fuse_clouds, threshold_grid, extract_frontiers) held to that file's
+     bounds.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
-pass of phase 5, K3 from the G = 320 run of phase 7), error, device times
+pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
+gives each path's run: bench, explore, active, marsyard, rgbd), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -69,7 +90,9 @@ import math
 import subprocess
 import sys
 import time
+import traceback
 import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
@@ -116,6 +139,21 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
 # final coverage of bench_suite.py::bench_ablation's arrival-info + roadmap
 # method at step 299 (ABLATION_COVERAGE.csv), the reference's own run
 REFERENCE_ABLATION_COVERAGE = 0.930
+# phases 8-9: bench_suite.py's active-SLAM and marsyard runs and the RGB-D arc.
+# The active run goes on past the bench's 80 frames to the 150 of
+# tests/test_active_slam_e2e.py, whose bounds (the robot's extent above all)
+# belong to that length; its figures at frame 80 stand beside the reference's.
+ACTIVE_BENCH_FRAMES = 80
+ACTIVE_FRAMES = 150
+ACTIVE_TICK_EVERY = 4
+MARSYARD_FRAMES = 150
+RGBD_FRAMES = 40
+# the reference's own runs of the same loops (BENCH_SUITE.json, config 4 at
+# 640x480 and the marsyard run at 320x240): accuracy and coverage only,
+# printed beside the port's and not asserted
+REFERENCE_ACTIVE = {"ate_m": 0.0062, "coverage": 0.398, "goals": 3, "fi_rejections": 0,
+                    "keyframes": 31}
+REFERENCE_MARSYARD = {"lethal_precision": 1.0, "violations": 0, "coverage": 0.733, "goals": 10}
 
 
 def log(msg: str) -> None:
@@ -145,6 +183,21 @@ def cuda_time_ms(fn, reps: int = 50, warmup: int = 5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, wall_ms
+
+
+def kernel_sum(fn, reps: int = 10):
+    """(device ms, kernel launches) a call of fn(), summed over the kernels
+    that a torch.profiler window of ``reps`` calls records: the device's own
+    work, whatever the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    k = _kernel_times(prof)
+    return sum(t for t, _ in k.values()) / reps / 1e3, sum(n for _, n in k.values()) / reps
 
 
 def _us(t) -> str:
@@ -851,18 +904,49 @@ def phase_k3(dev):
                           for name, t in runs.items()}}
 
 
+def _call_site() -> str:
+    """file:line of the innermost caller outside torch, the warnings module
+    and this script's own sync-counting helpers."""
+    torch_dir = str(Path(torch.__file__).parent)
+    for fr in reversed(traceback.extract_stack()):
+        if fr.filename.startswith(torch_dir) or fr.filename.endswith("warnings.py") or \
+                fr.name in ("_call_site", "_seen", "counted_wait"):
+            continue
+        return f"{Path(fr.filename).name}:{fr.lineno}"
+    return "?"
+
+
 @contextmanager
-def _torch_syncs(tally: dict, key: str):
+def _torch_syncs(tally: dict, key: str, sites: Counter = None):
     """Add to ``tally[key]`` torch's own count of synchronising calls made
-    inside the block (sync debug mode "warn" only there)."""
-    with warnings.catch_warnings(record=True) as caught:
+    inside the block (sync debug mode "warn" only there), and the block's
+    waits on a CUDA event, which that mode does not report
+    (``torch.cuda.Event.synchronize``, counted by wrapping it). ``sites``
+    gathers the file:line of the caller outside torch of each."""
+    real_wait = torch.cuda.Event.synchronize
+    found = []
+
+    def _seen(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            found.append(_call_site())
+
+    def counted_wait(event):
+        found.append(_call_site() + " (event)")
+        return real_wait(event)
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = _seen
+        torch.cuda.Event.synchronize = counted_wait
         torch.cuda.set_sync_debug_mode("warn")
         try:
             yield
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    tally[key] += sum("synchroniz" in str(w.message) for w in caught)
+            torch.cuda.Event.synchronize = real_wait
+    tally[key] += len(found)
+    if sites is not None:
+        sites.update(found)
 
 
 def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None):
@@ -926,11 +1010,12 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None
         steps = step + 1
         if done:
             break
+    launches = _counts()
     cov = coverage[:steps].cpu().numpy()
     explored = state["explored"].cpu().numpy()
     known = explored != UNKNOWN
     r.update(
-        steps=steps, coverage=cov, goals=server.diag.goals_sent, k3=_counts()["sweep"],
+        steps=steps, coverage=cov, goals=server.diag.goals_sent, launches=launches,
         agree=float((explored[known] == sim.make_rooms_world(spec, seed=1)[known]).mean()),
         plans=nav.plans, tick_syncs=server.host_syncs, ctrl_syncs=nav.host_syncs,
         nodes=int(server.roadmap.n_nodes))
@@ -1007,7 +1092,7 @@ def phase_explore(dev, n_steps=EXPLORE_STEPS):
         raise AssertionError(f"host sync counts differ: engine {r['tick_syncs']} / "
                              f"{r['ctrl_syncs']}, torch {r['tick_torch_syncs']} / "
                              f"{r['ctrl_torch_syncs']} (ticks / controller steps)")
-    k3_main = r["k3"]
+    launches = r["launches"]
 
     small = GridSpec2D(64, 0.25, -8.0, -8.0)
     a = explore(dev, small, ablation_config(), (-5.0, -5.0), n_steps)
@@ -1020,7 +1105,441 @@ def phase_explore(dev, n_steps=EXPLORE_STEPS):
         f"{time.monotonic() - t_phase:.1f} s")
     if not (acov[-1] > 0.5 and acov[-1] > acov[10] + 0.2):
         raise AssertionError(f"G=64 coverage {acov[10]} -> {acov[-1]} misses the bounds")
-    return k3_main
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9: the active-SLAM loop, the marsyard run and the RGB-D arc
+# ---------------------------------------------------------------------------
+
+
+def active_config(W, H, features, levels, fx):
+    """bench_suite.py::bench_active_slam's configuration (that of
+    tests/test_active_slam_e2e.py and tests/test_marsyard_e2e.py at 320x240)."""
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    cfg = FitSlamConfig()
+    R = dataclasses.replace
+    return R(
+        cfg,
+        camera=R(cfg.camera, width=W, height=H, fx=fx, fy=fx, cx=W / 2, cy=H / 2, baseline=0.2),
+        orb=R(cfg.orb, num_features=features, num_levels=levels, fast_threshold=12.0),
+        tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
+                   keyframe_translation=0.25),
+        mapping=R(cfg.mapping, max_keyframes=48, max_landmarks=3072, max_observations=8192,
+                  local_window=4, ba_iters=3),
+        loop=R(cfg.loop, enabled=False),
+        traversability=R(cfg.traversability, max_points_per_cloud=4096, max_clouds=48),
+        frontier_search=R(cfg.frontier_search, search_radius_m=6.0, max_frontiers=64),
+        roadmap=R(cfg.roadmap, max_nodes=256, cleanup_period_s=5.0),
+        nav=R(cfg.nav, wavefront_iters=192, desired_speed=0.7),
+        fisher_information=R(cfg.fisher_information, threshold=5.0),
+    )
+
+
+def rooms_world(dev, spec, floor_points):
+    """The rooms world of seed 3 as 3D landmarks (walls 2 m high, 4 points a
+    wall cell), with the reference's seed for jax.random.PRNGKey(5)."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.models.sim_robot import make_rooms_world
+
+    return synthetic.world_from_occupancy(make_rooms_world(spec, seed=3), spec,
+                                          synthetic.ROOMS_WORLD_SEED, wall_height=2.0,
+                                          points_per_wall_cell=4, floor_points=floor_points,
+                                          device=dev)
+
+
+def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=None,
+               snapshot_at=None):
+    """The loop of bench_suite.py::bench_active_slam through the port's
+    ActiveSlamSystem: a stereo frame and its frustum cloud every step, a
+    tick every ACTIVE_TICK_EVERY steps (then the FI oracle's value at the
+    robot's true pose, read outside the tick), a controller step every
+    step. Each frame, tick and controller step runs between two
+    synchronizes and is counted: host seconds, the engine's and torch's
+    host syncs (with torch's call sites), and kernel launches. After
+    ``snapshot_at`` frames the coverage, goals, FI rejections and keyframes
+    are noted (outside the windows) as ``r["snapshot"]``.
+
+    The system's scheduling clock is a ``SimClock`` that reads the
+    simulation's time, a controller step of 0.15 s a frame, not the host's:
+    on the host's clock the roadmap's periodic cleanup fires at other frames
+    on a faster or slower host, and the run's goals and path differ from
+    call to call."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.models import sim_robot as sim
+    from fitslam_tpu_torch.models.active_slam import ActiveSlamSystem, camera_pose_from_robot
+    from fitslam_tpu_torch.models.sim_nav import SimNavInterface
+    from fitslam_tpu_torch.ops import lie
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+    from fitslam_tpu_torch.ops.grid import UNKNOWN
+    from fitslam_tpu_torch.utils.profiling import SimClock
+
+    clock = SimClock()
+    dt = 0.15
+    W, H = cfg.camera.width, cfg.camera.height
+    K = Intrinsics.from_config(cfg.camera, dev)
+    robot = sim.DiffDriveRobot(x=start[0], y=start[1], yaw=start[2], v_max=0.8, w_max=1.0)
+    box = {}
+    nav = SimNavInterface(cfg, spec, robot, lambda: box["sys"].occupancy(), dt=dt, device=dev)
+    nav.controller.max_omega = max_omega
+    system = ActiveSlamSystem(cfg, spec, nav, device=dev, event_logger=clock,
+                              get_robot_pose=lambda: box["sys"].estimated_robot_pose())
+    box["sys"] = system
+
+    def engine_syncs():
+        return (system.slam.host_syncs + nav.host_syncs + system.explorer.host_syncs
+                + system.host_syncs)
+
+    r = {f"{w}_{k}": 0 for w in ("frame", "tick", "ctrl")
+         for k in ("n", "s", "syncs", "torch_syncs", "describe", "top2", "sweep")}
+    r.update({f"{w}_sites": Counter() for w in ("frame", "tick", "ctrl")})
+    cams, fi_values = [], []
+    _reset_counts()
+    for step in range(n_frames):
+        z = 0.8 if surface_z is None else surface_z(robot.x, robot.y) + 0.8
+        cam = camera_pose_from_robot(robot.x, robot.y, robot.yaw, height=z, device=dev)
+        if step == 0:
+            system.set_world_anchor(cam)
+        cams.append(cam)
+        left, right = synthetic.render_stereo(K, landmarks, cam, width=W, height=H,
+                                              max_depth=12.0)
+        cloud, cvalid = synthetic.frustum_cloud(K, landmarks, cam,
+                                                max_points=cfg.traversability.max_points_per_cloud,
+                                                max_depth=8.0, width=W, height=H)
+        windows = [("frame", lambda: system.process_frame(left, right, cloud, cvalid))]
+        if step % ACTIVE_TICK_EVERY == ACTIVE_TICK_EVERY - 1:
+            windows.append(("tick", system.tick_exploration))
+        windows.append(("ctrl", nav.step))
+        for w, fn in windows:
+            torch.cuda.synchronize()
+            before, launches, t0 = engine_syncs(), _counts(), time.perf_counter()
+            with _torch_syncs(r, f"{w}_torch_syncs", r[f"{w}_sites"]):
+                fn()
+            torch.cuda.synchronize()
+            r[f"{w}_s"] += time.perf_counter() - t0
+            r[f"{w}_n"] += 1
+            r[f"{w}_syncs"] += engine_syncs() - before
+            for k, v in _counts().items():
+                if f"{w}_{k}" in r:
+                    r[f"{w}_{k}"] += v - launches[k]
+            if w == "tick":
+                fi_values.append(system.fisher_information_of_pose(robot.xy, robot.yaw))
+        clock.sim_s += dt
+        if step + 1 == snapshot_at:
+            d = system.explorer.diag
+            r["snapshot"] = dict(
+                coverage=float((system.occupancy() != UNKNOWN).float().mean()),
+                goals=d.goals_sent, fi_rejections=d.fi_rejections,
+                n_kf=int(system.slam.map.n_kf))
+    launches = _counts()
+    system.finalize()
+    Rs = torch.stack([c.R for c in cams])
+    ts = torch.stack([c.t for c in cams])
+    gt = list(lie.SE3(Rs, ts).matrix().cpu().numpy().astype(np.float64))
+    occ = system.occupancy().cpu().numpy()
+    traj = np.array([(x, y) for x, y, _ in robot.trajectory])
+    r.update(system=system, robot=robot, nav=nav, gt=gt, occ=occ, fi=fi_values,
+             launches=launches, n_kf=int(system.slam.map.n_kf),
+             extent=float(np.ptp(traj[:, 0]) + np.ptp(traj[:, 1])), traj=traj,
+             ate=_ate_world(system.slam.trajectory, gt))
+    return r
+
+
+def _ate_world(trajectory, gt):
+    """ATE of a SLAM-frame trajectory anchored at the first ground-truth
+    pose, without alignment (the reference tests' measure)."""
+    from fitslam_tpu_torch.utils import evaluation as ev
+
+    return ev.ate_rmse([gt[0] @ T for T in trajectory], gt, align=False)
+
+
+def _per(r, w, key):
+    return r[f"{w}_{key}"] / max(r[f"{w}_n"], 1)
+
+
+def _window_line(r):
+    return (f"K1 {_per(r, 'frame', 'describe'):.2f} / K2 {_per(r, 'frame', 'top2'):.2f} launches "
+            f"a frame, K3 {_per(r, 'tick', 'sweep'):.2f} a tick and "
+            f"{_per(r, 'ctrl', 'sweep'):.3f} a controller step; host syncs a frame "
+            f"{_per(r, 'frame', 'syncs'):.3f} (torch {_per(r, 'frame', 'torch_syncs'):.3f}), "
+            f"a tick {_per(r, 'tick', 'syncs'):.2f} (torch {_per(r, 'tick', 'torch_syncs'):.2f}), "
+            f"a controller step {_per(r, 'ctrl', 'syncs'):.3f} (torch "
+            f"{_per(r, 'ctrl', 'torch_syncs'):.3f}); host ms a frame "
+            f"{_per(r, 'frame', 's') * 1e3:.1f}, a tick {_per(r, 'tick', 's') * 1e3:.1f} "
+            f"({r['tick_n'] / max(r['tick_s'], 1e-9):.2f} ticks/s), a controller step "
+            f"{_per(r, 'ctrl', 's') * 1e3:.2f}")
+
+
+def _check_windows(r, what):
+    """Every kernel of the path launched in the run, and the engine's and
+    torch's counts of host syncs equal in every window."""
+    if min(r["launches"][k] for k in ("describe", "top2", "sweep")) <= 0:
+        raise AssertionError(f"{what}: a kernel of the path was not launched: {r['launches']}")
+    for w in ("frame", "tick", "ctrl"):
+        if r[f"{w}_syncs"] != r[f"{w}_torch_syncs"]:
+            raise AssertionError(f"{what}: host syncs differ in the {w} window: engine "
+                                 f"{r[w + '_syncs']}, torch {r[w + '_torch_syncs']} at "
+                                 f"{dict(r[w + '_sites'])}")
+
+
+def fusion_check(dev, system, spec, tcfg):
+    """buffer_cell_stats -> stats_to_grid -> threshold_grid on the run's
+    clouds and world-anchored keyframe poses, twice on the card and once on
+    the CPU: (card runs identical, occupancy equal to the CPU's, cells whose
+    statistics differ between card and CPU)."""
+    from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.ops import lie
+
+    kf, _ = system.kf_poses_world()
+
+    def fuse(d):
+        buf = gr.CloudBuffer(*(t.to(d) for t in system.clouds))
+        stats = gr.buffer_cell_stats(spec, buf, lie.SE3(kf.R.to(d), kf.t.to(d)))
+        grid = gr.stats_to_grid(spec, stats, max_slope=tcfg.max_slope,
+                                ground_clearance=tcfg.ground_clearance,
+                                robot_height=tcfg.robot_height,
+                                security_distance=tcfg.security_distance)
+        return [t.cpu() for t in (*stats, *grid, gr.threshold_grid(grid, tcfg.lethal_threshold))]
+
+    a, b, c = fuse(dev), fuse(dev), fuse("cpu")
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    cells = int(sum((x != y).reshape(-1) for x, y in zip(a[:5], c[:5])).gt(0).sum())
+    return same, torch.equal(a[-1], c[-1]), cells, int((a[-1] != gr.UNKNOWN).sum())
+
+
+def oracle_gaps(dev, system, spec, robot):
+    """Largest relative gap between the card's and the CPU's pose_information
+    (at the robot's pose) and path_information (toward the frontiers of the
+    final grid) on the same inputs."""
+    from fitslam_tpu_torch.models.active_slam import camera_pose_from_robot
+    from fitslam_tpu_torch.ops import fisher, lie
+    from fitslam_tpu_torch.ops import frontier as fx
+    from fitslam_tpu_torch.utils.transfer import upload
+
+    fcfg = system.cfg.fisher_information
+    T = lie.compose(lie.inverse(system.T_anchor),
+                    camera_pose_from_robot(robot.x, robot.y, robot.yaw, device=dev))
+    p_c, ok = system.slam.get_landmarks_in_view(T, max_distance=fcfg.max_landmark_distance)
+    robot_xy = upload(np.asarray(robot.xy, np.float32), dev)
+    fr = fx.extract_frontiers(spec, system.occupancy(), robot_xy, spec.extent, max_frontiers=64)
+    lm = system.landmark_map_world()
+    gaps = []
+    for fn, args in ((fisher.pose_information, (p_c, ok)),
+                     (fisher.path_information, (*lm, robot_xy, fr.goal_xy, fr.valid))):
+        card = fn(*args).double().cpu()
+        cpu = fn(*(a.cpu() for a in args)).double()
+        gaps.append(float(((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))))
+    return gaps, int(fr.valid.sum())
+
+
+def phase_active(dev):
+    from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+
+    t_phase = time.monotonic()
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    W, H = 640, 480
+    cfg = active_config(W, H, 1024, 4, fx=0.625 * W)
+    world = rooms_world(dev, spec, floor_points=4000)
+    # the bench's controller (max_omega at its default of 1.0)
+    r = run_active(dev, cfg, spec, world.landmarks, (-5.0, -5.0, 0.3), ACTIVE_FRAMES,
+                   max_omega=1.0, snapshot_at=ACTIVE_BENCH_FRAMES)
+    at80 = r["snapshot"]
+    ate80 = _ate_world(r["system"].slam.trajectory[:ACTIVE_BENCH_FRAMES],
+                       r["gt"][:ACTIVE_BENCH_FRAMES])
+    system, known = r["system"], r["occ"] != gr.UNKNOWN
+    d = system.explorer.diag
+    lethal = int((r["occ"][known] == gr.LETHAL).sum())
+    tcfg = cfg.traversability
+    same, occ_equal, cells, n_known = fusion_check(dev, system, spec, tcfg)
+    gaps, n_fr = oracle_gaps(dev, system, spec, r["robot"])
+    # grid fusion a keyframe: one cloud into the running statistics, the
+    # classified grid and its threshold (ActiveSlamSystem._on_keyframe +
+    # occupancy()), and the full re-stitch of the 48 x 4096 buffer. Their
+    # device time is the sum of their kernels in a profiler window: the
+    # CUDA-event time of these many small launches follows the host's pace
+    kf, _ = system.kf_poses_world()
+    slot = (int(system.clouds.n_clouds) - 1) % tcfg.max_clouds
+    kf_idx = system.clouds.kf_idx[slot:slot + 1].long()
+    T_kf = type(kf)(kf.R[kf_idx][0], kf.t[kf_idx][0])
+    kw = dict(max_slope=tcfg.max_slope, ground_clearance=tcfg.ground_clearance,
+              robot_height=tcfg.robot_height, security_distance=tcfg.security_distance)
+
+    def scatter_one():
+        return gr.scatter_cloud_stats(spec, system._fstats, system.clouds.points[slot],
+                                      system.clouds.valid[slot], T_kf)
+
+    def classify(stats):
+        return gr.threshold_grid(gr.grid_from_stats(spec, stats, **kw), tcfg.lethal_threshold)
+
+    def restitch():
+        return gr.buffer_cell_stats(spec, system.clouds, kf)
+
+    fuse_wall = cuda_time_ms(lambda: classify(scatter_one()), reps=20)[1]
+    restitch_wall = cuda_time_ms(restitch, reps=10)[1]
+    (stats_ms, stats_n), (grid_ms, grid_n), (re_ms, re_n) = (
+        kernel_sum(fn) for fn in (scatter_one, lambda: classify(system._fstats), restitch))
+    ref = REFERENCE_ACTIVE
+    log(f"[8 active] {W}x{H}, {cfg.orb.num_features} features, {cfg.orb.num_levels} levels, "
+        f"G={spec.size} at {spec.resolution} m, rooms world seed 3 ({world.landmarks.shape[0]} "
+        f"points), {ACTIVE_FRAMES} frames, a tick every {ACTIVE_TICK_EVERY}: {r['frame_n']} "
+        f"frames, {r['tick_n']} ticks, {r['n_kf']} keyframes, world-anchored ATE "
+        f"{r['ate']:.4f} m, coverage {known.mean():.4f}, {lethal} lethal cells, {d.goals_sent} "
+        f"goals, {d.fi_rejections} FI rejections, max FI {max(r['fi']):.1f}, robot extent "
+        f"{r['extent']:.2f} m; at frame {ACTIVE_BENCH_FRAMES}: ATE {ate80:.4f} m, coverage "
+        f"{at80['coverage']:.4f}, {at80['goals']} goals, {at80['fi_rejections']} FI "
+        f"rejections, {at80['n_kf']} keyframes (reference, its own {ACTIVE_BENCH_FRAMES}-frame "
+        f"run: ATE {ref['ate_m']} m, coverage {ref['coverage']}, {ref['goals']} goals, "
+        f"{ref['fi_rejections']} FI rejections, {ref['keyframes']} keyframes); "
+        f"{_window_line(r)}; grid fusion a keyframe: kernels "
+        f"{(stats_ms + grid_ms) * 1e3:.1f} us in {stats_n + grid_n:.0f} launches (the cloud's "
+        f"statistics {stats_ms * 1e3:.1f} us in {stats_n:.0f}, the grid and its threshold "
+        f"{grid_ms * 1e3:.1f} us in {grid_n:.0f}), {fuse_wall * 1e3:.1f} us host wall; the full "
+        f"re-stitch of {tcfg.max_clouds}x{tcfg.max_points_per_cloud}: kernels {re_ms * 1e3:.1f} "
+        f"us in {re_n:.0f} launches, {restitch_wall * 1e3:.1f} us host wall; fused grid of the run's {int(system.clouds.n_clouds)} clouds: card "
+        f"runs identical {same}, occupancy equal to the CPU's {occ_equal} ({n_known} known "
+        f"cells, {cells} cells whose statistics differ from the CPU's); largest card/CPU "
+        f"relative gap: pose_information {gaps[0]:.2e}, path_information {gaps[1]:.2e} "
+        f"({n_fr} frontiers); phase {time.monotonic() - t_phase:.1f} s")
+    _check_windows(r, "[8 active]")
+    if not (r["n_kf"] >= 5 and r["ate"] < 0.5 and known.mean() > 0.08 and lethal > 10
+            and max(r["fi"]) > 5.0 and r["extent"] > 2.0 and d.goals_sent >= 1):
+        raise AssertionError("[8 active] misses the bounds of tests/test_active_slam_e2e.py")
+    if not (same and occ_equal):
+        raise AssertionError(f"[8 active] fused grid: card runs identical {same}, occupancy "
+                             f"equal to the CPU's {occ_equal}")
+    return r["launches"]
+
+
+def phase_marsyard(dev):
+    """bench_suite.py::bench_marsyard's loop, held to tests/test_marsyard_e2e.py's bounds."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+
+    t_phase = time.monotonic()
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    cfg = active_config(320, 240, 320, 2, fx=200.0)
+    mw = synthetic.marsyard_world(spec, seed=3, points_per_cell=6, device=dev)
+    r = run_active(dev, cfg, spec, mw.world.landmarks, (-5.0, -0.5, 0.2), MARSYARD_FRAMES,
+                   max_omega=0.9, surface_z=lambda x, y: synthetic.marsyard_surface_z(x, y, mw, spec))
+    occ = r["occ"]
+    known = occ != gr.UNKNOWN
+    grid_lethal = known & (occ >= gr.INSCRIBED)
+    gt, gt_dil = mw.gt_lethal, np.zeros_like(mw.gt_lethal)
+    for dy in range(-3, 4):
+        for dx in range(-3, 4):
+            gt_dil |= np.roll(np.roll(gt, dy, axis=0), dx, axis=1)
+    precision = float((grid_lethal & gt_dil).sum() / max(grid_lethal.sum(), 1))
+    cells = np.clip(((r["traj"] - [spec.origin_x, spec.origin_y]) / spec.resolution).astype(int),
+                    0, spec.size - 1)
+    violations = int(gt[cells[:, 1], cells[:, 0]].sum())
+    d = r["system"].explorer.diag
+    ref = REFERENCE_MARSYARD
+    log(f"[8 marsyard] 320x240, {MARSYARD_FRAMES} frames, marsyard_world(seed=3, "
+        f"points_per_cell=6) ({mw.world.landmarks.shape[0]} points): {r['n_kf']} keyframes, "
+        f"ATE {r['ate']:.4f} m, known {known.mean():.4f}, {int(grid_lethal.sum())} lethal cells, "
+        f"lethal precision {precision:.3f}, {violations} lethal-cell violations, robot extent "
+        f"{r['extent']:.2f} m, {d.goals_sent} goals, {d.fi_rejections} FI rejections "
+        f"(reference, its own run: precision {ref['lethal_precision']}, {ref['violations']} "
+        f"violations, coverage {ref['coverage']}, {ref['goals']} goals); {_window_line(r)}; "
+        f"phase {time.monotonic() - t_phase:.1f} s")
+    _check_windows(r, "[8 marsyard]")
+    if not (known.mean() > 0.05 and grid_lethal.sum() >= 10 and precision > 0.7
+            and violations == 0 and r["extent"] > 2.0 and d.goals_sent >= 1):
+        raise AssertionError("[8 marsyard] misses the bounds of tests/test_marsyard_e2e.py")
+    return r["launches"]
+
+
+def phase_rgbd(dev):
+    """The arc of tests/test_rgbd_e2e.py at the bench's 640x480, 4 levels and
+    1024 features, held to that file's bounds: process_rgbd_frame, a
+    depth_image_to_cloud per keyframe (stride 8: the 320x240 test's 4800
+    points), fuse_clouds, threshold_grid and extract_frontiers."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.models.active_slam import camera_pose_from_robot
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.ops import frontier as fx
+    from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.ops import lie
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+    from fitslam_tpu_torch.utils.transfer import upload
+
+    t_phase = time.monotonic()
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    W, H = 640, 480
+    cfg = FitSlamConfig()
+    R = dataclasses.replace
+    cfg = R(cfg,
+            camera=R(cfg.camera, width=W, height=H, fx=0.625 * W, fy=0.625 * W, cx=W / 2,
+                     cy=H / 2, baseline=0.2, rgbd=True),
+            orb=R(cfg.orb, num_features=1024, num_levels=4, fast_threshold=12.0),
+            tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
+                       keyframe_translation=0.25, reloc_enabled=False),
+            mapping=R(cfg.mapping, max_keyframes=32, max_landmarks=3072,
+                      max_observations=8192, local_window=4, ba_iters=3),
+            loop=R(cfg.loop, enabled=False),
+            traversability=R(cfg.traversability, max_points_per_cloud=4800, max_clouds=32))
+    K = Intrinsics.from_config(cfg.camera, dev)
+    world = rooms_world(dev, spec, floor_points=5000)
+    slam = StereoSlam(cfg, dev)
+    tcfg = cfg.traversability
+    box = {"clouds": gr.empty_cloud_buffer(tcfg.max_clouds, tcfg.max_points_per_cloud, dev)}
+
+    def on_kf(s, kf_idx):
+        pts, ok = gr.depth_image_to_cloud(K, box["depth"], stride=8, max_depth=8.0)
+        box["clouds"] = gr.add_cloud(box["clouds"], pts, ok, kf_idx)
+
+    slam.keyframe_events.append(on_kf)
+    x, y, yaw = -5.0, -5.0, 0.3
+    cams = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(RGBD_FRAMES):
+        cam = camera_pose_from_robot(x, y, yaw, device=dev)
+        cams.append(cam)
+        img, box["depth"] = synthetic.render_rgbd(K, world.landmarks, cam, width=W, height=H,
+                                                  max_depth=12.0)
+        slam.process_rgbd_frame(img, box["depth"])
+        if step >= 2:
+            yaw += 0.04
+            x += 0.12 * math.cos(yaw)
+            y += 0.12 * math.sin(yaw)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    n = _counts()
+    kf_world = lie.compose(slam.map.kf_T_cw, lie.inverse(cams[0]))
+    grid = gr.fuse_clouds(spec, box["clouds"], kf_world, max_slope=tcfg.max_slope,
+                          ground_clearance=tcfg.ground_clearance,
+                          robot_height=tcfg.robot_height, security_distance=tcfg.security_distance)
+    occ_t = gr.threshold_grid(grid, tcfg.lethal_threshold)
+    fr = fx.extract_frontiers(spec, occ_t, upload(np.array([-5.0, -5.0], np.float32), dev),
+                              spec.extent, max_cells=4096, max_frontiers=64, max_cluster_size=20,
+                              min_cluster_size=2, cc_iters=48)
+    occ = occ_t.cpu().numpy()
+    known = occ != gr.UNKNOWN
+    gt = list(lie.SE3(torch.stack([c.R for c in cams]), torch.stack([c.t for c in cams]))
+              .matrix().cpu().numpy().astype(np.float64))
+    ate = _ate_world(slam.trajectory, gt)
+    n_kf, n_lm, n_fr = int(slam.map.n_kf), int(slam.map.n_lm), int(fr.valid.sum())
+    free = int((occ[known] == gr.FREE).sum())
+    log(f"[9 rgbd] {W}x{H}, {cfg.orb.num_features} features, {cfg.orb.num_levels} levels, "
+        f"{RGBD_FRAMES} frames of the arc through process_rgbd_frame: {RGBD_FRAMES / loop_s:.2f} "
+        f"frames/s, {n_kf} keyframes, {n_lm} landmarks, ATE {ate:.4f} m, known "
+        f"{known.mean():.4f}, {free} free cells, {n_fr} frontiers; K1 {n['describe'] / RGBD_FRAMES:.2f}"
+        f" / K2 {n['top2'] / RGBD_FRAMES:.2f} launches a frame, host syncs a frame "
+        f"{slam.host_syncs / RGBD_FRAMES:.2f}; phase {time.monotonic() - t_phase:.1f} s")
+    if n["describe"] != RGBD_FRAMES or n["top2"] <= 0:
+        raise AssertionError(f"[9 rgbd] kernel launches {n}: expected one describe a frame "
+                             f"and some K2")
+    if not (n_kf >= 4 and ate < 0.3 and n_lm > 200 and known.mean() > 0.05 and free > 50
+            and n_fr >= 1):
+        raise AssertionError("[9 rgbd] misses the bounds of tests/test_rgbd_e2e.py")
+    return n
 
 
 def _kernel_times(prof):
@@ -1136,22 +1655,33 @@ def main() -> int:
     phase_golden(dev)
     n = phase_bench(dev)
     k3 = phase_k3(dev)
-    n3 = phase_explore(dev)
+    paths = {"bench": n, "explore": phase_explore(dev), "active": phase_active(dev),
+             "marsyard": phase_marsyard(dev), "rgbd": phase_rgbd(dev)}
+
+    def by_path(kernel):
+        """The kernel's launches in each path's run (counts set to 0 just
+        before it, read just after)."""
+        return {path: counts[kernel] for path, counts in paths.items()}
+
     kernels = [
         {"name": "K1 patch gather", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/patch_gather.cu",
          "replaces": "fitslam_tpu/ops/pallas_patches.py:31", "launches": n["gather"],
+         "launches_by_path": by_path("gather"),
          "launches_note": "off the main path since the fused describe; phase 2 holds it "
                           "against its twin", **k1},
         {"name": "K1 fused ORB describe", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/patch_gather.cu",
-         "replaces": "fitslam_tpu/ops/pallas_patches.py:31", "launches": n["describe"], **k1d},
+         "replaces": "fitslam_tpu/ops/pallas_patches.py:31", "launches": n["describe"],
+         "launches_by_path": by_path("describe"), **k1d},
         {"name": "K2 gated Hamming top-2", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/hamming_top2.cu",
-         "replaces": "fitslam_tpu/ops/pallas_matching.py:31", "launches": n["top2"], **k2},
+         "replaces": "fitslam_tpu/ops/pallas_matching.py:31", "launches": n["top2"],
+         "launches_by_path": by_path("top2"), **k2},
         {"name": "K3 wavefront sweeps", "route": "cuda",
          "source": "fitslam_tpu_torch/csrc/wavefront_sweep.cu",
-         "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": n3, **k3},
+         "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": paths["explore"]["sweep"],
+         "launches_by_path": by_path("sweep"), **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

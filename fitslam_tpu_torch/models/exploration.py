@@ -34,6 +34,7 @@ import torch
 from fitslam_tpu_torch.models import costs as cx
 from fitslam_tpu_torch.models import nav as navx
 from fitslam_tpu_torch.models import roadmap as rmx
+from fitslam_tpu_torch.ops import fisher
 from fitslam_tpu_torch.ops import frontier as fx
 from fitslam_tpu_torch.ops import lie, raycast
 from fitslam_tpu_torch.ops.grid import UNKNOWN, GridSpec2D
@@ -144,8 +145,8 @@ class ExplorationServer:
         # tick's ONE packed pull instead of costing its own readback
         self.fi_oracle_device = fi_oracle_device
         self.get_kf_poses = get_kf_poses
-        # landmark map accessor for fisher_information_in_path (the branch
-        # that uses it waits for the port of ops/fisher.py)
+        # landmark map accessor for fisher_information_in_path: () ->
+        # (xy (L, 2), info (L,), valid (L,)), tensors or host arrays
         self.get_landmarks = get_landmarks
         # goal sharing with peer robots: peers' active goals are treated like
         # blacklist circles so two robots never chase the same frontier
@@ -228,6 +229,13 @@ class ExplorationServer:
     def _upload_xy(self, xy) -> torch.Tensor:
         return upload(np.asarray(xy, np.float32), self.device)
 
+    def _on_device(self, x) -> torch.Tensor:
+        """A tensor on this server's device; host arrays go up with
+        ``upload``, which never waits."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return upload(np.asarray(x), self.device)
+
     def _read(self, t: torch.Tensor) -> np.ndarray:
         """One counted device->host read."""
         self.host_syncs += 1
@@ -296,13 +304,20 @@ class ExplorationServer:
                 iters=self.cfg.nav.wavefront_iters,
                 allow_unknown=True,
             )
-            # fisher_information_in_path per frontier (E4/E5)
+            # fisher_information_in_path per frontier (E4/E5): mean FOV
+            # landmark information along each approach segment
             fcfg = self.cfg.fisher_information
+            path_fi = None
             if (self.get_landmarks is not None and fcfg.enabled
                     and fcfg.min_path_information > 0.0):
-                raise NotImplementedError(
-                    "fisher_information_in_path needs ops/fisher.py, which is "
-                    "ported with ActiveSlamSystem (ROADMAP queue 1)")
+                lm_xy, lm_info, lm_valid = (self._on_device(a) for a in self.get_landmarks())
+                path_fi = fisher.path_information(
+                    lm_xy.to(torch.float32), lm_info.to(torch.float32), lm_valid.to(torch.bool),
+                    robot_dev, fr.goal_xy, fr.valid,
+                    num_waypoints=fcfg.path_fi_waypoints,
+                    fov_half_angle=fcfg.fov_half_angle,
+                    max_range=fcfg.max_landmark_distance,
+                )
             costs = cx.assign_costs(
                 self.spec, occ, fr, self.roadmap.xy, self.roadmap.valid,
                 robot_dist, blacklisted,
@@ -312,7 +327,7 @@ class ExplorationServer:
                 v_max=self.cfg.cost_assigner.max_linear_velocity,
                 w_max=self.cfg.cost_assigner.max_angular_velocity,
                 grid_pot=pot,
-                path_fi=None,
+                path_fi=path_fi,
                 min_path_info=fcfg.min_path_information,
                 robot_xy=robot_dev,
                 closeness_rejection=self.cfg.cost_calculator.closeness_rejection_m,

@@ -1,8 +1,10 @@
-"""The stereo SLAM engine (port of ``StereoSlam`` in
+"""The stereo/RGB-D SLAM engine (port of ``StereoSlam`` in
 ``fitslam_tpu/models/slam.py``): host orchestration of the frame step.
 
-This slice covers ``process_frame``, ``process_frame_async``,
-``process_prepared[_async]``, ``poll_keyframe_events`` and ``finalize`` with
+It covers the stereo and RGB-D frame steps (``process_frame[_async]``,
+``process_rgbd_frame[_async]``, ``process_prepared[_async]``),
+``poll_keyframe_events``, ``finalize`` and the service surface
+(``get_landmarks_in_view``, ``get_map_data``, ``current_pose_wc``), with
 loop closing and relocalization off; asking for either raises.
 
 Both behaviours of the reference's pipelined polling are kept: keyframe
@@ -76,6 +78,13 @@ class StereoSlam:
                                  num_levels=o.num_levels, scale_factor=o.scale_factor,
                                  fast_threshold=o.fast_threshold)
 
+    def _frontend_rgbd(self, img, depth_img) -> tr.StereoFrame:
+        o = self.cfg.orb
+        return tr.process_rgbd(self.K, img, depth_img, num_features=o.num_features,
+                               num_levels=o.num_levels, scale_factor=o.scale_factor,
+                               fast_threshold=o.fast_threshold,
+                               max_depth=self.cfg.camera.depth_max)
+
     def _step(self, frame: tr.StereoFrame) -> StepOutputs:
         cfg = self.cfg
         self.map, self.state, outs, inserted, syncs = _backend_body(
@@ -113,6 +122,18 @@ class StereoSlam:
         with self.log.scope("frontend", MODULE):
             frame = self._frontend(img_left, img_right)
         return self.process_prepared(frame)
+
+    def process_rgbd_frame(self, img, depth_img) -> Dict:
+        """Track one RGB-D frame (reference rgbd mode, SURVEY.md §2.1 S2):
+        the same backend as stereo, depth read from the registered depth
+        image."""
+        with self.log.scope("frontend", MODULE):
+            frame = self._frontend_rgbd(img, depth_img)
+        return self.process_prepared(frame)
+
+    def process_rgbd_frame_async(self, img, depth_img) -> StepOutputs:
+        """RGB-D variant of the zero-readback step."""
+        return self.process_prepared_async(self._frontend_rgbd(img, depth_img))
 
     def process_frame_async(self, img_left, img_right) -> StepOutputs:
         """Frame step whose per-frame outputs stay on the device in
@@ -252,3 +273,30 @@ class StereoSlam:
         self._traj_ref.append((ref_kf, lie.SE3(outs.ref_T_cw_R, outs.ref_T_cw_t)))
         self.frame_id += 1
         return info
+
+    # ------------------------------------------------------------------
+    # Service surface (reference: slam_msgs services, SURVEY.md §1 L2→up)
+    # ------------------------------------------------------------------
+
+    def get_landmarks_in_view(self, T_wc: lie.SE3, max_distance: float = 14.0):
+        """`orb_slam3/get_landmarks_in_view` equivalent: camera-frame landmark
+        positions + mask (FisherInfoManager.cpp:60-78 call contract), on the
+        device, with no read back."""
+        return sm.landmarks_in_view(self.map, self.K, T_wc, max_distance,
+                                    self.cfg.camera.width, self.cfg.camera.height)
+
+    def get_map_data(self):
+        """`orb_slam3_get_map_data` equivalent: keyframe graph + landmarks
+        (one read of the keyframe count)."""
+        n_kf = int(self.map.n_kf)
+        self.host_syncs += 1
+        return {
+            "kf_poses_T_cw": lie.SE3(self.map.kf_T_cw.R[:n_kf], self.map.kf_T_cw.t[:n_kf]),
+            "kf_frame_ids": self.map.kf_frame_id[:n_kf],
+            "landmarks": self.map.lm_pos,
+            "landmarks_valid": self.map.lm_valid,
+        }
+
+    @property
+    def current_pose_wc(self) -> lie.SE3:
+        return lie.inverse(self.state.T_cw)

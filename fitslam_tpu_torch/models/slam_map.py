@@ -23,7 +23,8 @@ import torch
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.ba import BAProblem, Observations, bundle_adjust
 from fitslam_tpu_torch.ops.geometry import Intrinsics, backproject
-from fitslam_tpu_torch.ops.orb import FrameFeatures, top_k_stable
+from fitslam_tpu_torch.ops.numerics import top_k_stable
+from fitslam_tpu_torch.ops.orb import FrameFeatures
 
 
 class SlamMap(NamedTuple):

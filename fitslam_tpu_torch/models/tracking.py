@@ -87,6 +87,29 @@ def process_stereo(
     return StereoFrame(fl, depth_from_disparity(K, disparity))
 
 
+def process_rgbd(
+    K: Intrinsics,
+    img: torch.Tensor,
+    depth_img: torch.Tensor,
+    num_features: int = 1024,
+    num_levels: int = 4,
+    scale_factor: float = 1.4142135,
+    fast_threshold: float = 20.0,
+    max_depth: float = 14.0,
+) -> StereoFrame:
+    """RGB-D frontend (reference: orb_slam3 rgbd mode, rgbd.launch.py —
+    SURVEY.md §2.1 S2): ORB on the intensity image (one K1 launch), the
+    per-feature depth read from the registered depth image. Produces the
+    same StereoFrame the stereo path does, so the backend is unchanged."""
+    fl = orb.extract_orb(img, num_features, num_levels, scale_factor, fast_threshold)
+    H, W = depth_img.shape
+    iu = torch.clamp(torch.round(fl.xy[:, 0]).to(torch.int32), 0, W - 1).long()
+    iv = torch.clamp(torch.round(fl.xy[:, 1]).to(torch.int32), 0, H - 1).long()
+    d = depth_img[iv, iu]
+    d = torch.where((d > 0.1) & (d < max_depth) & fl.valid, d, torch.zeros_like(d))
+    return StereoFrame(fl, d)
+
+
 def _pan_multipliers(device) -> torch.Tensor:
     """[0, -1, 1, -2, 2, ..., -5, 5]: zero offset first so it wins ties."""
     k = torch.arange(11, device=device)

@@ -33,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from fitslam_tpu_torch.ops import image as imops
+from fitslam_tpu_torch.ops.numerics import top_k_stable
 from fitslam_tpu_torch.ops.pallas_patches import gather_patches_plain
 from fitslam_tpu_torch.utils.cuda_build import check_cuda_error, load_kernel_library
+from fitslam_tpu_torch.utils.transfer import upload
 
 PATCH = 32
 HALF = PATCH // 2
@@ -162,13 +164,14 @@ _device_constants: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 
 def _on_device(name: str, device) -> torch.Tensor:
-    """A module constant on ``device``, uploaded once: a per-call upload would
-    be a synchronous host-to-device copy on every call."""
+    """A module constant on ``device``, uploaded once and without a wait
+    (``upload``): ``torch.as_tensor(..., device=)`` would be a synchronous
+    host-to-device copy."""
     key = (name, torch.device(device))
     if key not in _device_constants:
         value = {"pairs": _ROTATED_PAIRS.astype(np.int32),
                  "w_centroid64": np.ascontiguousarray(_W_CENTROID.T, np.float64)}[name]
-        _device_constants[key] = torch.as_tensor(value, device=device)
+        _device_constants[key] = upload(value, device)
     return _device_constants[key]
 
 
@@ -224,12 +227,6 @@ def _border_mask(h: int, w: int, margin: int, device) -> torch.Tensor:
     r = torch.arange(h, device=device)[:, None]
     c = torch.arange(w, device=device)[None, :]
     return (r >= margin) & (r < h - margin) & (c >= margin) & (c < w - margin)
-
-
-def top_k_stable(x: torch.Tensor, k: int):
-    """Exact top-k with ``lax.top_k``'s tie order (lowest index first)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
 
 
 # ---------------------------------------------------------------------------

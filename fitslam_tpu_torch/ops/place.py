@@ -15,6 +15,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.utils.transfer import upload
+
 VOCAB_WORDS = 256
 TRAINED_BETA = 0.15
 VOCAB_FILE = Path(__file__).resolve().parents[2] / "fitslam_tpu" / "data" / "vocab_kmeans_256.npz"
@@ -30,8 +32,9 @@ def _trained_vocabulary(device) -> Tuple[torch.Tensor, torch.Tensor]:
             raise FileNotFoundError(f"committed vocabulary missing: {VOCAB_FILE}")
         C = np.load(VOCAB_FILE)["centroids"].astype(np.float32)
         half_sq = 0.5 * (C * C).sum(axis=1)
-        _vocab_cache[device] = (torch.as_tensor(C, device=device),
-                                torch.as_tensor(half_sq, device=device))
+        # uploaded without a wait: torch.as_tensor(..., device=) would be a
+        # synchronous host-to-device copy
+        _vocab_cache[device] = (upload(C, device), upload(half_sq, device))
     return _vocab_cache[device]
 
 

@@ -18,7 +18,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from fitslam_tpu_torch.ops.grid import LETHAL, UNKNOWN, GridSpec2D, true_div
+from fitslam_tpu_torch.ops.grid import LETHAL, UNKNOWN, GridSpec2D
+from fitslam_tpu_torch.ops.numerics import true_div
 
 _fans: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 

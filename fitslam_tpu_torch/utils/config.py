@@ -1,15 +1,16 @@
 """The port's configuration: the sections of ``fitslam_tpu/utils/config.py``
 that the stereo slice (camera, orb, tracking, mapping, loop) and the
-rapid-exploration slice (traversability through recovery) read, with
+rapid-exploration and active-SLAM slices (traversability through recovery) read, with
 ``FitSlamConfig.preset`` and ``validate``.
 
 The port keeps its own copy so that it, and ``chip_smoke.py`` on the card,
 import nothing of the reference package. Field names and defaults equal the
 reference's field for field (``tests/test_torch_utils.py`` checks it), so a
-reference ``FitSlamConfig`` can be passed to the port's ``StereoSlam`` and
-``ExplorationServer`` as well. The sections no ported slice reads
-(localization, multi_robot, parallel) are not here; YAML loading stays with
-the reference.
+reference ``FitSlamConfig`` can be passed to the port's ``StereoSlam``,
+``ExplorationServer`` and ``ActiveSlamSystem`` as well. ``localization`` is
+here because ``ActiveSlamSystem`` reads it (the EKF it enables is not ported
+yet). The sections no ported slice reads (multi_robot, parallel) are not
+here; YAML loading stays with the reference.
 """
 
 from __future__ import annotations
@@ -339,6 +340,25 @@ class RecoveryConfig:
 
 
 @dataclass(frozen=True)
+class LocalizationConfig:
+    """N5: robot_localization dual-EKF + twist_mux wired into the live loop
+    (ekf_with_gps.yaml / twist_mux.yaml). When enabled, ActiveSlamSystem
+    fuses wheel-odometry twist + IMU through the odom-frame filter and
+    additionally the SLAM pose (the absolute reference, in GPS's role)
+    through the map-frame filter; the fused map-frame pose becomes
+    get_robot_pose, and nav/recovery twists route through TwistMux."""
+
+    enabled: bool = False
+    odom_var: float = 0.01          # wheel twist variance
+    imu_rate_var: float = 0.005
+    imu_ori_var: float = 0.01
+    imu_gate: float = 0.8           # imu0 mahalanobis threshold (yaml)
+    slam_pose_var: float = 0.02
+    slam_pose_gate: float = 3.0     # reject loop-closure-scale jumps
+    fuse_every_n_frames: int = 1    # SLAM pose fusion decimation
+
+
+@dataclass(frozen=True)
 class FitSlamConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: OrbConfig = field(default_factory=OrbConfig)
@@ -357,6 +377,7 @@ class FitSlamConfig:
     sensor_simulator: SensorSimulatorConfig = field(default_factory=SensorSimulatorConfig)
     nav: NavConfig = field(default_factory=NavConfig)
     costmaps: CostmapsConfig = field(default_factory=CostmapsConfig)
+    localization: LocalizationConfig = field(default_factory=LocalizationConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
 
     @staticmethod

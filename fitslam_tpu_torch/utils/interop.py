@@ -3,11 +3,13 @@
 ``to_torch`` turns a reference NamedTuple (``SE3``, ``Intrinsics``,
 ``FrameFeatures``, ``StereoFrame``, ``TrackState``, ``SlamMap``,
 ``Observations``, ``BAProblem``, ``Matches``, ``Frontiers``,
-``FrontierCosts``, ``PathPlan``, ``Roadmap``), given with numpy leaves, into
-the port's NamedTuple of tensors on a device; ``to_numpy`` turns a port
-NamedTuple back into the same structure with numpy leaves. ``GridSpec2D`` is
-static geometry of Python numbers on both sides and passes through as the
-port's ``GridSpec2D`` with its numbers unchanged. Field names,
+``FrontierCosts``, ``PathPlan``, ``Roadmap``, ``CloudBuffer``,
+``TraversabilityGrid``, ``World``), given with numpy leaves, into the port's
+NamedTuple of tensors on a device; ``to_numpy`` turns a port NamedTuple back
+into the same structure with numpy leaves. A plain tuple or list (the cell
+statistics' 5-tuple) stays one, leaf by leaf, and ``None`` stays ``None``.
+``GridSpec2D`` is static geometry of Python numbers on both sides and passes
+through as the port's ``GridSpec2D`` with its numbers unchanged. Field names,
 shapes and dtypes are the same on both sides (bfloat16 travels as float32
 through numpy, which has no bfloat16 of its own). The parity tests move
 every input and output through these two functions.
@@ -23,6 +25,7 @@ from typing import Dict, Type
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.data.synthetic import World
 from fitslam_tpu_torch.models.costs import FrontierCosts, PathPlan
 from fitslam_tpu_torch.models.roadmap import Roadmap
 from fitslam_tpu_torch.models.slam_map import SlamMap
@@ -30,7 +33,7 @@ from fitslam_tpu_torch.models.tracking import StereoFrame, TrackState
 from fitslam_tpu_torch.ops.ba import BAProblem, Observations
 from fitslam_tpu_torch.ops.frontier import Frontiers
 from fitslam_tpu_torch.ops.geometry import Intrinsics
-from fitslam_tpu_torch.ops.grid import GridSpec2D
+from fitslam_tpu_torch.ops.grid import CloudBuffer, GridSpec2D, TraversabilityGrid
 from fitslam_tpu_torch.ops.lie import SE3
 from fitslam_tpu_torch.ops.matching import Matches
 from fitslam_tpu_torch.ops.orb import FrameFeatures
@@ -39,7 +42,7 @@ PORT_TYPES: Dict[str, Type] = {
     cls.__name__: cls
     for cls in (SE3, Intrinsics, FrameFeatures, StereoFrame, TrackState, SlamMap,
                 Observations, BAProblem, Matches, Frontiers, FrontierCosts, PathPlan,
-                Roadmap)
+                Roadmap, CloudBuffer, TraversabilityGrid, World)
 }
 
 
@@ -62,6 +65,10 @@ def to_torch(tree, device=None):
         if cls._fields != tree._fields:
             raise TypeError(f"{name}: field names differ: {tree._fields} vs {cls._fields}")
         return cls(*(to_torch(v, device) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    if tree is None:
+        return None
     return _leaf_to_torch(tree, device)
 
 
@@ -72,6 +79,10 @@ def to_numpy(tree):
         return tree
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:

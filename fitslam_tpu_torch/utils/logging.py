@@ -1,5 +1,6 @@
-"""Leveled logging (the ``warn`` part of ``fitslam_tpu/utils/logging.py``,
-which the exploration server's retry ladder uses). Same format, same
+"""Leveled logging (the ``info`` and ``warn`` parts of
+``fitslam_tpu/utils/logging.py``: the exploration server's retry ladder
+warns, the Fisher-information table loader informs). Same format, same
 ``FITSLAM_LOG_LEVEL`` environment switch."""
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ def _log(level: int, msg: str):
         print(f"{_COLORS[level]}[{tag:<5} {stamp}] {msg}{_RESET}", file=sys.stderr)
     else:
         print(f"[{tag:<5} {stamp}] {msg}", file=sys.stderr)
+
+
+def info(msg: str):
+    _log(INFO, msg)
 
 
 def warn(msg: str):

@@ -71,3 +71,16 @@ class EventLogger:
             dt = time.monotonic() - t0
             if tier <= self.time_tier:
                 self.stats[name].add(dt)
+
+
+@dataclass
+class SimClock(EventLogger):
+    """An EventLogger whose scheduling timer reads a simulation's time,
+    ``sim_s``, which the caller advances, instead of the host's: periodic
+    work (the roadmap's cleanup) then falls on the same steps of a simulated
+    run on a fast host and a slow one."""
+
+    sim_s: float = 0.0
+
+    def time_since_start(self) -> float:
+        return self.sim_s

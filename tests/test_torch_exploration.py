@@ -262,15 +262,50 @@ def test_fi_ladder_and_recovery_follow_the_reference():
     assert pt == pj
 
 
-def test_path_information_branch_raises_not_implemented():
-    cfg = _test_config(FitSlamConfig)
-    cfg = dataclasses.replace(cfg, fisher_information=dataclasses.replace(
-        cfg.fisher_information, enabled=True, min_path_information=1.0))
-    occ = torch.full((64, 64), tgrid.UNKNOWN, dtype=torch.uint8)
+def test_path_information_branch_raises_not_implemented(monkeypatch):
+    """The fisher_information_in_path branch (named for the NotImplementedError
+    it raised before ops/fisher.py was ported): one tick with
+    min_path_information > 0 and a landmark map west of the robot gives the
+    reference's path information per frontier (within 1e-5 relative), the
+    same achievable frontiers and the same goal."""
+    occ = np.full((64, 64), jgrid.UNKNOWN, np.uint8)
     occ[20:40, 20:40] = 0
-    server = tex.ExplorationServer(cfg, SPEC, lambda: occ, _recording_nav(tex),
-                                   get_robot_pose=lambda: (np.array([0.0, 0.0]), 0.0),
-                                   get_landmarks=lambda: (np.zeros((1, 2)), np.zeros(1),
-                                                          np.zeros(1, bool)), device="cpu")
-    with pytest.raises(NotImplementedError, match="fisher"):
+    rng = np.random.RandomState(11)
+    lm = (np.c_[rng.uniform(-7.0, -3.5, 300), rng.uniform(-3.0, 3.0, 300)].astype(np.float32),
+          rng.uniform(1.0, 30.0, 300).astype(np.float32), rng.rand(300) < 0.9)
+    runs = []
+    for mod, cfg_cls, spec, wrap in ((jex, JConfig, JSPEC, jnp.asarray),
+                                      (tex, FitSlamConfig, SPEC, torch.tensor)):
+        cfg = _test_config(cfg_cls)
+        cfg = dataclasses.replace(cfg, fisher_information=dataclasses.replace(
+            cfg.fisher_information, enabled=True, min_path_information=1.0))
+        seen = []
+        real = mod.fisher.path_information
+
+        def recording(*a, real=real, seen=seen, **kw):
+            out = real(*a, **kw)
+            seen.append((np.asarray(a[4]), np.asarray(a[5]), np.asarray(out)))
+            return out
+
+        monkeypatch.setattr(mod.fisher, "path_information", recording)
+        nav = _recording_nav(mod)
+        grid = wrap(occ)
+        server = mod.ExplorationServer(cfg, spec, lambda grid=grid: grid, nav,
+                                       get_robot_pose=lambda: (np.array([0.0, 0.0]), 0.0),
+                                       get_landmarks=lambda: lm,
+                                       **({} if mod is jex else {"device": "cpu"}))
+        server._last_cleanup = 1e18
         server.tick()
+        assert len(seen) == 1
+        runs.append((seen[0], nav.sent, server.diag.frontiers_found))
+    ((gj, vj, fj), sent_j, nj), ((gt_, vt, ft), sent_t, nt) = runs
+    assert nt == nj > 3
+    np.testing.assert_array_equal(gt_, gj)
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_allclose(ft, fj, rtol=1e-5, atol=1e-6)
+    achievable = vj & (fj >= 1.0)
+    np.testing.assert_array_equal(vt & (ft >= 1.0), achievable)
+    assert 0 < achievable.sum() < vj.sum()
+    assert len(sent_t) == len(sent_j) == 1
+    np.testing.assert_array_equal(sent_t[0][0], sent_j[0][0])
+    assert sent_t[0][0][0] < -2.0      # the goal lies on the landmark-rich side

@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SECTIONS = ["camera", "orb", "tracking", "mapping", "loop", "traversability",
             "frontier_search", "cost_calculator", "cost_assigner", "roadmap",
             "path_optimizer", "goal_hysteresis", "fisher_information", "exploration_bt",
-            "sensor_simulator", "nav", "costmaps", "recovery"]
+            "sensor_simulator", "nav", "costmaps", "localization", "recovery"]
 
 
 @pytest.mark.parametrize("section", SECTIONS)
@@ -95,6 +95,8 @@ def test_exploration_slice_imports_no_jax():
         "import sys\n"
         "import fitslam_tpu_torch.models.sim_nav, fitslam_tpu_torch.models.exploration\n"
         "import fitslam_tpu_torch.ops.pallas_grid, fitslam_tpu_torch.utils.interop\n"
+        "import fitslam_tpu_torch.models.active_slam, fitslam_tpu_torch.ops.fisher\n"
+        "import fitslam_tpu_torch.ops.grid, fitslam_tpu_torch.data.synthetic\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fitslam_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -162,7 +164,15 @@ def test_event_logger_keeps_tiers_up_to_its_own():
                                    "models.slam_map:empty_map",
                                    "models.tracking:init_track_state",
                                    "data.synthetic:load_world",
-                                   "data.synthetic:straight_trajectory"])
+                                   "data.synthetic:straight_trajectory",
+                                   "models.active_slam:ActiveSlamSystem",
+                                   "models.active_slam:camera_pose_from_robot",
+                                   "data.synthetic:world_from_occupancy",
+                                   "data.synthetic:marsyard_world",
+                                   "ops.grid:empty_cloud_buffer",
+                                   "ops.grid:empty_cell_stats",
+                                   "ops.fisher:generate_lookup_table",
+                                   "ops.fisher:load_lookup_table"])
 def test_entry_points_default_to_cuda(entry):
     """The port's entry points and the state they build run on the card
     unless the caller passes device="cpu" (read from the signature, so no
@@ -177,3 +187,24 @@ def test_entry_points_default_to_cuda(entry):
     default = inspect.signature(fn).parameters["device"].default
     assert default is not inspect.Parameter.empty, f"{entry} has no device default"
     assert torch.device(default).type == "cuda"
+
+
+def test_localization_config_and_active_slam_preset_equal_reference():
+    ref, port = jcfg.FitSlamConfig.preset("active_slam"), tcfg.FitSlamConfig.preset("active_slam")
+    assert dataclasses.asdict(port) == {k: v for k, v in dataclasses.asdict(ref).items()
+                                        if k in SECTIONS}
+    assert dataclasses.asdict(tcfg.LocalizationConfig()) == dataclasses.asdict(
+        jcfg.LocalizationConfig())
+    assert port.fisher_information.enabled and not port.localization.enabled
+
+
+def test_active_slam_raises_for_the_ekf_layer():
+    from fitslam_tpu_torch.models.active_slam import ActiveSlamSystem
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+
+    cfg = tcfg.FitSlamConfig.preset("active_slam")
+    cfg = dataclasses.replace(cfg, localization=dataclasses.replace(cfg.localization,
+                                                                    enabled=True))
+    with pytest.raises(NotImplementedError, match="localization"):
+        ActiveSlamSystem(cfg, GridSpec2D(16, 0.25, -2.0, -2.0), nav=None,
+                         get_robot_pose=lambda: None, device="cpu")
