@@ -94,7 +94,7 @@ import traceback
 import warnings
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -154,6 +154,27 @@ RGBD_FRAMES = 40
 REFERENCE_ACTIVE = {"ate_m": 0.0062, "coverage": 0.398, "goals": 3, "fi_rejections": 0,
                     "keyframes": 31}
 REFERENCE_MARSYARD = {"lethal_precision": 1.0, "violations": 0, "coverage": 0.733, "goals": 10}
+# phase 10: bench_suite.py::bench_loop_slam as bench.py runs it (150 ring
+# frames, the committed worlds of seeds 1-3, a pipelined poll every 4 frames)
+LOOP_FRAMES = 150
+LOOP_SEEDS = (1, 2, 3)
+LOOP_POLL = 4
+# K2's loop-verification call: a keyframe's 1024 features against the whole
+# landmark table, and a ragged shape
+LOOP_K2_SHAPES = ((1024, 20480), (1000, 20001))
+BA_ITERS = 15
+# card vs CPU bundle_adjust on a small problem: poses (m), points (m)
+BA_CPU_TOL = (1e-4, 1e-3)
+# the reference's own loop runs (BENCH_r05.json, loop_slam.per_seed): accuracy,
+# loops and keyframes only, printed beside the port's and not asserted
+REFERENCE_LOOP = {
+    1: {"ate_rmse_m": 0.1714, "ate_rmse_pre_refine_m": 0.2336, "ate_rmse_uncorrected_m": 0.1605,
+        "loops_closed": 3, "n_keyframes": 78},
+    2: {"ate_rmse_m": 0.088, "ate_rmse_pre_refine_m": 0.1413, "ate_rmse_uncorrected_m": 0.1569,
+        "loops_closed": 3, "n_keyframes": 78},
+    3: {"ate_rmse_m": 0.0765, "ate_rmse_pre_refine_m": 0.1505, "ate_rmse_uncorrected_m": 0.1571,
+        "loops_closed": 3, "n_keyframes": 78},
+}
 
 
 def log(msg: str) -> None:
@@ -1542,6 +1563,431 @@ def phase_rgbd(dev):
     return n
 
 
+def loop_config():
+    """bench_suite.py::bench_loop_slam's configuration at full width: 640x480,
+    4 levels, 1024 features, 128 keyframes / 20480 landmarks / 65536
+    observations, the close-point depth 35 baselines, and its loop settings."""
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    W, H = 640, 480
+    cfg = FitSlamConfig()
+    R = dataclasses.replace
+    return R(
+        cfg,
+        camera=R(cfg.camera, width=W, height=H, fx=0.625 * W, fy=0.625 * W, cx=W / 2,
+                 cy=H / 2, baseline=0.2),
+        orb=R(cfg.orb, num_features=1024, num_levels=4, fast_threshold=12.0),
+        tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
+                   keyframe_translation=0.3, keyframe_rotation=0.15),
+        mapping=R(cfg.mapping, max_keyframes=128, max_landmarks=20480, max_observations=65536,
+                  local_window=4, ba_iters=3, close_depth_factor=35.0),
+        loop=R(cfg.loop, enabled=True, min_gap_keyframes=15, min_score=0.22,
+               consistency_threshold=2, min_matches=40),
+    )
+
+
+def loop_poses(dev):
+    """The ring of LOOP_FRAMES poses (radius 8 m) and the re-entry overlap
+    (bench_loop_slam: max(4, n // 25) frames of the start again)."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.ops import lie
+
+    ring = synthetic.loop_trajectory(LOOP_FRAMES, radius=8.0, device=dev)
+    ov = max(4, LOOP_FRAMES // 25)
+    return lie.SE3(torch.cat([ring.R, ring.R[:ov]]), torch.cat([ring.t, ring.t[:ov]]))
+
+
+@contextmanager
+def _stage_timers(spans):
+    """Record CUDA events around every optimize_pose_graph and global_ba call
+    (by wrapping the names loop_closing and slam_map call): ``spans`` gets
+    (stage, start event, end event, iterations) for each; read them after a
+    synchronize."""
+    from fitslam_tpu_torch.models import loop_closing, slam_map
+    from fitslam_tpu_torch.ops import pgo
+
+    real_pgo, real_gba = pgo.optimize_pose_graph, slam_map.global_ba
+
+    def timed(stage, fn, iters_default):
+        def wrapper(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((stage, start, end, kwargs.get("iters", iters_default)))
+            return out
+        return wrapper
+
+    pgo.optimize_pose_graph = timed("pgo", real_pgo, 12)
+    slam_map.global_ba = timed("gba", real_gba, 8)
+    try:
+        yield
+    finally:
+        pgo.optimize_pose_graph, slam_map.global_ba = real_pgo, real_gba
+
+
+def _span_ms(spans, stage):
+    """(device ms an iteration, calls) of a stage's recorded spans."""
+    got = [(s.elapsed_time(e), n) for st, s, e, n in spans if st == stage]
+    if not got:
+        return float("nan"), 0
+    return sum(t for t, _ in got) / sum(n for _, n in got), len(got)
+
+
+def run_loop(dev, cfg, frames, gt, torch_syncs=None, refine=True):
+    """bench_loop_slam's run on the port: process_frame_async with a
+    pipelined poll (flush=False) every LOOP_POLL frames, a flushing poll at
+    the end; frames/s from frame 1 on the host clock between synchronizes;
+    then finalize, the ATEs, and (with ``refine``) refine_map(cycles=10,
+    gba_iters=15) timed. With ``torch_syncs`` (a Counter) torch's own count
+    of synchronising calls during the frames, and their call sites, are
+    gathered too. K1/K2 launches are counted from frame 0 to the last poll."""
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.utils import evaluation as ev
+
+    slam = StereoSlam(cfg, dev)
+    spans = []
+    n_total = len(frames)
+    tally = {"n": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _stage_timers(spans):
+        _reset_counts()
+        slam.process_frame_async(*frames[0])
+        torch.cuda.synchronize()
+        syncs0 = slam.host_syncs
+        t0 = time.perf_counter()
+        guard = _torch_syncs(tally, "n", torch_syncs) if torch_syncs is not None else nullcontext()
+        with guard:
+            for i in range(1, n_total):
+                slam.process_frame_async(*frames[i])
+                if i % LOOP_POLL == 0:
+                    slam.poll_keyframe_events(flush=False)
+            slam.poll_keyframe_events()
+            torch.cuda.synchronize()
+        fps = (n_total - 1) / (time.perf_counter() - t0)
+        launches = _counts()
+        syncs = slam.host_syncs - syncs0
+        run_peak = torch.cuda.max_memory_allocated(dev)
+        slam.finalize()
+        traj = [T.copy() for T in slam.trajectory]
+        ate = ev.ate_rmse(slam.trajectory, gt)
+        ate_pre = ev.ate_rmse(slam.corrected_trajectory(), gt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if refine:
+            slam.refine_map(cycles=10, gba_iters=15)
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0
+    corrected = slam.corrected_trajectory()
+    pgo_ms, n_pgo = _span_ms(spans, "pgo")
+    gba_ms, n_gba = _span_ms(spans, "gba")
+    return dict(
+        slam=slam, fps=fps, traj=traj, launches=launches, syncs=syncs / (n_total - 1),
+        torch_syncs=tally["n"] / (n_total - 1), ate_uncorrected=ate, ate_pre_refine=ate_pre,
+        ate=ev.ate_rmse(corrected, gt), ate_scale=ev.ate_rmse(corrected, gt, with_scale=True),
+        refine_s=refine_s, loops=len(slam.loop_events), n_kf=int(slam.map.n_kf),
+        events=[(e["loop_from"], e["loop_to"], e["inliers"], e["pgo_chi2"], e["gba_chi2"])
+                for e in slam.loop_events],
+        pgo_ms=pgo_ms, n_pgo=n_pgo, gba_ms=gba_ms, n_gba=n_gba,
+        peak_gb=max(run_peak, torch.cuda.max_memory_allocated(dev)) / 1e9,
+        run_peak_gb=run_peak / 1e9)
+
+
+def phase_loop(dev):
+    """[10 loop]: bench_loop_slam's protocol on the port at full width, the
+    committed ring worlds of seeds 1-3 rendered on the card; seed 1 twice,
+    which must repeat bit for bit (F17, F18)."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.ops import lie
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+
+    t_phase = time.monotonic()
+    cfg = loop_config()
+    W, H = cfg.camera.width, cfg.camera.height
+    K = Intrinsics.from_config(cfg.camera, dev)
+    T_gt = loop_poses(dev)
+    n_total = T_gt.t.shape[0]
+    gt = list(T_gt.matrix().cpu().numpy().astype(np.float64))
+
+    def render(seed, device, frames=None):
+        Kd = Intrinsics.from_config(cfg.camera, device)
+        world = synthetic.load_ring_world(seed, device=device)
+        R, t = T_gt.R.to(device), T_gt.t.to(device)
+        return [synthetic.render_stereo(Kd, world, lie.SE3(R[i], t[i]), width=W, height=H,
+                                        max_depth=14.0)
+                for i in (range(n_total) if frames is None else frames)]
+
+    # F18: one ring frame rendered twice on the card and once on the CPU
+    i_probe = [n_total // 3]
+    (l1, r1), (l2, r2) = render(1, dev, i_probe)[0], render(1, dev, i_probe)[0]
+    lc, rc = render(1, torch.device("cpu"), i_probe)[0]
+    render_same = torch.equal(l1, l2) and torch.equal(r1, r2)
+    render_cpu = torch.equal(l1.cpu(), lc) and torch.equal(r1.cpu(), rc)
+    runs, warm, det_warnings = {}, None, Counter()
+    for seed in LOOP_SEEDS:
+        frames = render(seed, dev)
+        torch.cuda.synchronize()
+        if seed == LOOP_SEEDS[0]:
+            sites = Counter()
+            warm = run_loop(dev, cfg, frames, gt, torch_syncs=sites)
+            warm["sites"] = sites
+            runs[seed] = run_loop(dev, cfg, frames, gt)
+            # diagnostic only: which operations of the path torch's
+            # deterministic mode flags (the fix is the fixed-order sums, not
+            # this mode, which is switched off again)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    run_loop(dev, cfg, frames, gt, refine=False)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            det_warnings.update(str(w.message).split(".")[0][:90] for w in caught
+                                if "determinis" in str(w.message))
+        else:
+            runs[seed] = run_loop(dev, cfg, frames, gt)
+        del frames
+    first, again = warm, runs[LOOP_SEEDS[0]]
+    same_traj = len(first["traj"]) == len(again["traj"]) and all(
+        np.array_equal(a, b) for a, b in zip(first["traj"], again["traj"]))
+    same_events = first["events"] == again["events"]
+    for seed, r in runs.items():
+        ref = REFERENCE_LOOP[seed]
+        log(f"[10 loop] seed {seed}: {LOOP_FRAMES}+{n_total - LOOP_FRAMES} frames {W}x{H}, "
+            f"{r['fps']:.2f} frames/s (host clock), ATE uncorrected {r['ate_uncorrected']:.4f} / "
+            f"pre-refine {r['ate_pre_refine']:.4f} / post-refine {r['ate']:.4f} m (Sim(3) "
+            f"{r['ate_scale']:.4f}), {r['loops']} loops {[e[:3] for e in r['events']]}, "
+            f"{r['n_kf']} keyframes, refine {r['refine_s']:.2f} s, host syncs a frame "
+            f"{r['syncs']:.3f}, K2 {r['launches']['top2']} launches "
+            f"({r['launches']['top2'] / n_total:.2f} a frame), K1 describe "
+            f"{r['launches']['describe']}, PGO {r['pgo_ms']:.2f} ms an "
+            f"iteration ({r['n_pgo']} calls), GBA {r['gba_ms']:.2f} ms an iteration "
+            f"({r['n_gba']} calls, refine included), peak memory {r['run_peak_gb']:.2f} GB in the "
+            f"frames, {r['peak_gb']:.2f} GB with the refine (reference, its own run: ATE "
+            f"uncorrected {ref['ate_rmse_uncorrected_m']} / pre-refine "
+            f"{ref['ate_rmse_pre_refine_m']} / post-refine {ref['ate_rmse_m']} m, "
+            f"{ref['loops_closed']} loops, {ref['n_keyframes']} keyframes)")
+    med = {k: float(np.median([r[k] for r in runs.values()]))
+           for k in ("ate", "ate_uncorrected", "ate_pre_refine", "fps")}
+    log(f"[10 loop] medians over seeds {list(runs)}: {med['fps']:.2f} frames/s, ATE post-refine "
+        f"{med['ate']:.4f} m (max {max(r['ate'] for r in runs.values()):.4f}), pre-refine "
+        f"{med['ate_pre_refine']:.4f}, uncorrected {med['ate_uncorrected']:.4f} (reference: 0.088 / "
+        f"max 0.1714 / uncorrected 0.1571); seed {LOOP_SEEDS[0]} twice: trajectories bit-equal "
+        f"{same_traj}, loop events identical {same_events}; first run's host syncs a frame: "
+        f"engine {first['syncs']:.3f}, torch {first['torch_syncs']:.3f} "
+        f"({dict(first['sites'].most_common(6))}); a ring frame rendered twice on the card "
+        f"bit-equal {render_same}, equal to the CPU render {render_cpu}; under "
+        f"torch.use_deterministic_algorithms(warn_only) seed {LOOP_SEEDS[0]}'s frames warn: "
+        f"{dict(det_warnings) or 'nothing'}; phase {time.monotonic() - t_phase:.1f} s")
+    if not all(r["loops"] >= 1 for r in runs.values()):
+        raise AssertionError(f"[10 loop] a seed closed no loop: "
+                             f"{ {s: r['loops'] for s, r in runs.items()} }")
+    if not med["ate"] < med["ate_uncorrected"]:
+        raise AssertionError("[10 loop] median post-refine ATE is not below the uncorrected one")
+    if not (same_traj and same_events):
+        raise AssertionError("[10 loop] seed 1's two runs differ")
+    if not (render_same and render_cpu):
+        raise AssertionError("[10 loop] the card's render does not repeat or differs from the CPU's")
+    if any(r["launches"]["top2"] <= 0 or r["launches"]["describe"] != 2 * n_total
+           for r in runs.values()):
+        raise AssertionError("[10 loop] K1 / K2 launches on the path: "
+                             f"{[r['launches'] for r in runs.values()]}")
+    return runs[LOOP_SEEDS[0]]
+
+
+def phase_k2_verify(dev):
+    """[10 K2 verify]: K2's ungated call of loop verification, (1024, 20480)
+    with a sparse landmark mask of ~300 columns and a ragged shape, against
+    its twin (tolerance 0), match_ratio_fused's selection on the card against
+    the CPU's, and the call timed beside its bound and the bf16 product."""
+    from fitslam_tpu_torch.ops import pallas_matching as pm
+
+    out = {}
+    for na, nb in LOOP_K2_SHAPES:
+        p = _k2_problem(dev, na, nb)
+        rng = np.random.RandomState(nb)
+        mask = np.zeros(nb, bool)
+        mask[rng.choice(nb, 300, replace=False)] = True
+        p["valid_b"] = torch.as_tensor(mask, device=dev)
+        args = (p["a_bits"], p["valid_a"], p["b_bits"], p["valid_b"])
+        got = pm.hamming_top2(*args, pm.GATE_NONE)
+        ref = pm.hamming_top2_plain(*args, pm.GATE_NONE)
+        torch.cuda.synchronize()
+        for f in pm.Top2._fields:
+            if not torch.equal(getattr(got, f), getattr(ref, f)):
+                raise AssertionError(f"[10 K2 verify] {f} differs from the twin at {na}x{nb}")
+        mt = pm.match_ratio_fused(*args, max_distance=64, ratio=0.85, mutual=True)
+        mc = pm.match_ratio_fused(*(a.cpu() for a in args), max_distance=64, ratio=0.85,
+                                  mutual=True)
+        for x, y in zip(mt, mc):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"[10 K2 verify] match_ratio_fused differs from the "
+                                     f"CPU's at {na}x{nb}")
+        out[na, nb] = (p, int(mt.valid.sum()))
+    p, n_ok = out[LOOP_K2_SHAPES[0]]
+    args = (p["a_bits"], p["valid_a"], p["b_bits"], p["valid_b"])
+    na, nb = LOOP_K2_SHAPES[0]
+    k = cuda_time_ms(lambda: pm.hamming_top2(*args, pm.GATE_NONE))
+    plain = cuda_time_ms(lambda: pm.hamming_top2_plain(*args, pm.GATE_NONE), reps=5)
+    a_pm1 = pm._unpack_pm1(p["a_bits"]).to(torch.bfloat16)
+    b_pm1 = pm._unpack_pm1(p["b_bits"]).to(torch.bfloat16).T.contiguous()
+    lib = cuda_time_ms(lambda: torch.matmul(a_pm1, b_pm1))
+    b = bound(_k2_bytes(na, nb, pm.GATE_NONE), 2 * na * nb * 256, "int8")
+    log(f"[10 K2 verify] none gate + mutual check at {', '.join(f'{a}x{c}' for a, c in LOOP_K2_SHAPES)} "
+        f"with 300 valid columns: idx/best/second/col_best exactly equal to the twin, "
+        f"match_ratio_fused's matches equal to the CPU's ({n_ok} kept at {na}x{nb}); "
+        f"{_us(k)} (bound {b['bound_ms'] * 1e3:.2f} us, {b['bound_by']}), plain twin "
+        f"{_us(plain)}, bf16 +-1 matmul {na}x256 @ 256x{nb} {_us(lib)}")
+    return {"verify_ms": k[0], "verify_plain_ms": plain[0], "verify_bound_ms": b["bound_ms"],
+            "verify_library_ms": lib[0], "verify_shape": f"none {na}x{nb}, 300 valid columns"}
+
+
+def phase_atlas(dev):
+    """[10 atlas]: tests/test_atlas.py's two scenarios through the
+    synchronous StereoSlam on the card: a teleport without relocalization
+    opens map 1; with it, the return re-locks map 0 within 0.5 m."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.models.active_slam import camera_pose_from_robot
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    W, H = 320, 240
+    world = rooms_world(dev, spec, floor_points=4000).landmarks
+
+    def cfg_of(reloc):
+        cfg = FitSlamConfig()
+        R = dataclasses.replace
+        return R(cfg,
+                 camera=R(cfg.camera, width=W, height=H, fx=200.0, fy=200.0, cx=W / 2,
+                          cy=H / 2, baseline=0.2),
+                 orb=R(cfg.orb, num_features=320, num_levels=2, fast_threshold=12.0),
+                 tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
+                            keyframe_translation=0.25, reinit_after_lost=3,
+                            reloc_enabled=reloc, reloc_after_lost=1, reloc_min_inliers=15),
+                 mapping=R(cfg.mapping, max_keyframes=24, max_landmarks=2048,
+                           max_observations=6144, local_window=4, ba_iters=2),
+                 loop=R(cfg.loop, enabled=False))
+
+    def step(slam, K, x, y, yaw):
+        cam = camera_pose_from_robot(x, y, yaw, device=dev)
+        left, right = synthetic.render_stereo(K, world, cam, width=W, height=H, max_depth=12.0)
+        return slam.process_frame(left, right)
+
+    def creep(slam, K):
+        x, y, yaw = -5.0, -5.0, 0.3
+        for _ in range(8):
+            step(slam, K, x, y, yaw)
+            x += 0.15 * math.cos(yaw)
+            y += 0.15 * math.sin(yaw)
+
+    cfg = cfg_of(False)
+    K = Intrinsics.from_config(cfg.camera, dev)
+    slam = StereoSlam(cfg, dev)
+    creep(slam, K)
+    first_max = int(slam.map.kf_map_id.max())
+    for i in range(8):
+        step(slam, K, 5.0 + 0.1 * i, 5.0, -2.6)
+    ids = slam.map.kf_map_id[slam.map.kf_valid]
+    teleport = (first_max, int(ids.max()), int(slam.state.map_id))
+
+    cfg = cfg_of(True)
+    slam = StereoSlam(cfg, dev)
+    creep(slam, K)
+    for i in range(6):
+        step(slam, K, 5.0 + 0.1 * i, 5.0, -2.6)
+    kidnap_map = int(slam.state.map_id)
+    back = [step(slam, K, -5.0, -5.0, 0.3) for _ in range(5)]
+    T = slam.current_pose_wc.matrix().cpu().numpy()
+    anchor = camera_pose_from_robot(-5.0, -5.0, 0.3, device=dev).matrix().cpu().numpy()
+    err = float(np.linalg.norm((anchor @ T)[:2, 3] - np.array([-5.0, -5.0])))
+    relocked = [bool(b.get("relocalized")) for b in back]
+    log(f"[10 atlas] teleport without relocalization: map ids {teleport[0]} before, up to "
+        f"{teleport[1]} after, tracker on map {teleport[2]}; with relocalization: kidnap "
+        f"opened map {kidnap_map}, relocalized on return frames {relocked}, tracker on map "
+        f"{int(slam.state.map_id)}, last frame {back[-1]['n_inliers']} inliers, position error "
+        f"{err:.3f} m (bound 0.5 m)")
+    if not (teleport[0] == 0 and teleport[1] >= 1 and teleport[2] >= 1):
+        raise AssertionError("[10 atlas] the teleport did not open a new map")
+    if not (kidnap_map >= 1 and any(relocked) and int(slam.state.map_id) == 0
+            and back[-1]["n_inliers"] >= 15 and err < 0.5):
+        raise AssertionError("[10 atlas] relocalization did not re-lock map 0 within 0.5 m")
+
+
+def phase_ba(dev, loop_run):
+    """[10 BA]: global_ba on the loop run's map at bench capacity twice
+    (bit-equal), timed with its peak memory; bundle_adjust on the card
+    beside the CPU on a small planted problem."""
+    from fitslam_tpu_torch.models import slam_map as sm
+    from fitslam_tpu_torch.ops import ba, lie
+
+    slam = loop_run["slam"]
+    m, K = slam.map, slam.K
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out, stats = sm.global_ba(m, K, iters=BA_ITERS)
+        torch.cuda.synchronize()
+        outs.append((out, stats, (torch.cuda.max_memory_allocated(dev) - base) / 1e9))
+    (a, sa, peak), (b, sb, _) = outs
+    same = all(torch.equal(x, y) for x, y in ((a.kf_T_cw.R, b.kf_T_cw.R), (a.kf_T_cw.t, b.kf_T_cw.t),
+                                               (a.lm_pos, b.lm_pos), (sa.chi2, sb.chi2)))
+    t = cuda_time_ms(lambda: sm.global_ba(m, K, iters=BA_ITERS), reps=3, warmup=1)
+    # small planted problem: 6 keyframes x 300 landmarks, made with numpy
+    rng = np.random.RandomState(7)
+    n_kf, n_lm = 6, 300
+    pts = np.stack([rng.uniform(-4, 4, n_lm), rng.uniform(-2, 2, n_lm),
+                    rng.uniform(4, 12, n_lm)], -1).astype(np.float32)
+    xi = np.concatenate([np.stack([0.3 * np.arange(n_kf), 0.05 * np.arange(n_kf),
+                                   np.zeros(n_kf)], -1), np.zeros((n_kf, 3))], -1)
+    T_true = lie.se3_exp(torch.tensor(xi, dtype=torch.float32))
+    kf = np.repeat(np.arange(n_kf), n_lm)
+    lm = np.tile(np.arange(n_lm), n_kf)
+    pc = (T_true.R.numpy()[kf] @ pts[lm][..., None])[..., 0] + T_true.t.numpy()[kf]
+    u = 400 * pc[:, 0] / pc[:, 2] + 320
+    v = 400 * pc[:, 1] / pc[:, 2] + 240
+    uvr = (np.stack([u, v, u - 80.0 / pc[:, 2]], -1)
+           + rng.normal(scale=0.5, size=(len(kf), 3))).astype(np.float32)
+    T0 = lie.compose(lie.se3_exp(torch.tensor(rng.normal(scale=0.02, size=(n_kf, 6)),
+                                              dtype=torch.float32)), T_true)
+    pts0 = pts + rng.normal(scale=0.05, size=pts.shape).astype(np.float32)
+
+    def solve(d):
+        obs = ba.Observations(torch.tensor(kf, dtype=torch.int32, device=d),
+                              torch.tensor(lm, dtype=torch.int32, device=d),
+                              torch.tensor(uvr, device=d), torch.ones(len(kf), device=d),
+                              torch.ones(len(kf), dtype=torch.bool, device=d))
+        prob = ba.BAProblem(lie.SE3(T0.R.to(d), T0.t.to(d)), torch.tensor(pts0, device=d), obs,
+                            torch.arange(n_kf, device=d) == 0,
+                            torch.zeros(n_lm, dtype=torch.bool, device=d))
+        Kd = type(K)(*(x.to(d) for x in K))
+        return ba.bundle_adjust(Kd, prob, iters=6)[0]
+
+    pc_out, pg_out, pg_again = solve(torch.device("cpu")), solve(dev), solve(dev)
+    dpose = float((pg_out.T_cw.t.cpu() - pc_out.T_cw.t).abs().max())
+    dpt = float((pg_out.points.cpu() - pc_out.points).abs().max())
+    small_same = torch.equal(pg_out.T_cw.t, pg_again.T_cw.t) and torch.equal(pg_out.points,
+                                                                             pg_again.points)
+    n_kf_map, n_lm_map = int(m.n_kf), int(m.n_lm)
+    log(f"[10 BA] global_ba at {tuple(m.kf_valid.shape)[0]} keyframes x {m.lm_valid.shape[0]} "
+        f"landmarks ({n_kf_map} / {n_lm_map} in use), {BA_ITERS} iterations: two calls "
+        f"bit-equal {same}, {t[0]:.2f} ms device ({t[0] / BA_ITERS:.2f} ms an iteration), peak "
+        f"memory {peak:.2f} GB above the map; bundle_adjust 6 keyframes x {n_lm} landmarks: two "
+        f"card calls bit-equal {small_same}, card vs CPU max |d t| {dpose:.2e} m, max |d point| "
+        f"{dpt:.2e} m (tolerance {BA_CPU_TOL}: float32 LU solves and products of another "
+        f"order)")
+    if not (same and small_same):
+        raise AssertionError("[10 BA] BA on the card does not repeat")
+    if not (dpose < BA_CPU_TOL[0] and dpt < BA_CPU_TOL[1]):
+        raise AssertionError("[10 BA] BA on the card differs from the CPU's")
+
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -1657,6 +2103,11 @@ def main() -> int:
     k3 = phase_k3(dev)
     paths = {"bench": n, "explore": phase_explore(dev), "active": phase_active(dev),
              "marsyard": phase_marsyard(dev), "rgbd": phase_rgbd(dev)}
+    loop = phase_loop(dev)
+    paths["loop"] = loop["launches"]
+    k2.update(phase_k2_verify(dev))
+    phase_atlas(dev)
+    phase_ba(dev, loop)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just

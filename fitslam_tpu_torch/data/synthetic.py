@@ -1,11 +1,19 @@
 """Procedural worlds and frames (port of ``fitslam_tpu/data/synthetic.py``):
-a straight corridor trajectory, a Gaussian-blob stereo renderer and an RGB-D
-sensor model of a landmark world, per-keyframe frustum clouds, 3D worlds
-built from an occupancy grid, and the marsyard heightfield world.
+straight corridor and ring loop trajectories, a Gaussian-blob stereo
+renderer and an RGB-D sensor model of a landmark world, per-keyframe frustum
+clouds, 3D worlds built from an occupancy grid, and the marsyard heightfield
+world. A rendered frame is the same on every run of the card and equals the
+CPU's (ROADMAP fault F18): overlapping blobs add a pixel in a fixed order
+(``numerics.segment_sum_fixed``), the camera transform is written out as
+fused multiply-adds in a fixed order (``numerics.fma32``), the blob weights'
+``exp`` is taken in float64 and rounded once, and the blob style divides
+truly (``numerics.true_div``).
 
 Worlds the reference draws with ``jax.random`` come from files, since torch
 cannot reproduce that stream (ROADMAP fault F4): the bench world is
-committed as ``tests/data/bench_corridor_world.npz`` (``load_world``).
+committed as ``tests/data/bench_corridor_world.npz`` (``load_world``), the
+ring worlds of the loop bench as ``tests/data/ring_worlds.npz``
+(``load_ring_world``).
 ``world_from_occupancy`` draws from a numpy ``RandomState`` whose integer
 seed the reference takes from ``jax.random``; the port takes that integer
 (``ROOMS_WORLD_SEED`` is the reference's for ``PRNGKey(5)``).
@@ -25,9 +33,12 @@ import torch
 
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics, project_stereo
-from fitslam_tpu_torch.ops.numerics import top_k_stable
+from fitslam_tpu_torch.ops.numerics import fma32, segment_sum_fixed, top_k_stable, true_div
 
 BENCH_WORLD = Path(__file__).resolve().parents[2] / "tests" / "data" / "bench_corridor_world.npz"
+# ring_world(PRNGKey(seed), num=5000, radius=8.0, width=5.0) for seeds 1-3,
+# the worlds of bench_suite.py::bench_loop_slam, as "seed_<seed>" arrays
+RING_WORLDS = Path(__file__).resolve().parents[2] / "tests" / "data" / "ring_worlds.npz"
 # the integer the reference's world_from_occupancy seeds its RandomState
 # with for jax.random.PRNGKey(5): int(jax.random.randint(key, (), 0, 2**31 - 1))
 ROOMS_WORLD_SEED = 359975681
@@ -43,6 +54,45 @@ def load_world(path=BENCH_WORLD, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.load(path)["landmarks"].astype(np.float32), device=device)
 
 
+def load_ring_world(seed: int, path=RING_WORLDS, device="cuda") -> torch.Tensor:
+    """(5000, 3) float32 landmarks of the committed ring world of ``seed``."""
+    return torch.as_tensor(np.load(path)[f"seed_{seed}"].astype(np.float32), device=device)
+
+
+def loop_trajectory(num_frames: int, radius: float = 12.0, height: float = 1.2,
+                    device="cuda") -> lie.SE3:
+    """Camera going around a circle, facing along it: closes a loop. Returns
+    world-from-camera poses (T_wc), camera +z forward, +x right, +y down.
+    The angles are ``jnp.linspace``'s float32 values as its compiler folds
+    them (i times the float32 constant stop * (1 / (n - 1)), the last one
+    stop), and the sines and cosines are correctly rounded, so the poses are
+    the same on either device and within an ulp of the reference's."""
+    stop = np.float32(2.0 * math.pi)
+    if num_frames > 1:
+        step = float(stop * (np.float32(1.0) / np.float32(num_frames - 1)))
+        s = torch.cat([torch.arange(num_frames - 1, dtype=torch.float32, device=device) * step,
+                       torch.full((1,), float(stop), dtype=torch.float32, device=device)])
+    else:
+        s = torch.zeros((num_frames,), dtype=torch.float32, device=device)
+
+    def cos(x):
+        return torch.cos(x.double()).float()
+
+    def sin(x):
+        return torch.sin(x.double()).float()
+
+    cx = radius * cos(s)
+    cy = radius * sin(s)
+    cz = torch.full_like(s, height)
+    yaw = s + math.pi / 2   # tangent direction
+    fwd = torch.stack([cos(yaw), sin(yaw), torch.zeros_like(yaw)], dim=-1)
+    # camera y (down in the image) is world -z
+    down = torch.tensor([0.0, 0.0, -1.0], device=device).expand(fwd.shape)
+    right = torch.linalg.cross(down, fwd)
+    R_wc = torch.stack([right, down, fwd], dim=-1)   # columns: camera axes in world
+    return lie.SE3(R_wc, torch.stack([cx, cy, cz], dim=-1))
+
+
 def straight_trajectory(num_frames: int, length: float = 30.0, height: float = 1.2,
                         start_x: float = 2.0, device="cuda") -> lie.SE3:
     """Camera moving along +x looking forward (corridor sequence), T_wc."""
@@ -56,16 +106,18 @@ def straight_trajectory(num_frames: int, length: float = 30.0, height: float = 1
 
 
 def _hash01(i: torch.Tensor) -> torch.Tensor:
-    """The reference's uint32 hash, in int64 arithmetic masked to 32 bits."""
+    """The reference's uint32 hash, in int64 arithmetic masked to 32 bits,
+    scaled to [0, 1] by a true division on either device."""
     x = (i.long() * 2654435761) & 0xFFFFFFFF
     x = x ^ 0x9E3779B9
     x = x ^ (x >> 16)
-    return (x & 0xFFFF).float() / 65535.0
+    return true_div((x & 0xFFFF).float(), 65535.0)
 
 
 def _splat(u, v, lum, height, width, sigma):
-    """Scatter-add Gaussian blobs: a 7x7 stamp per landmark. ``sigma`` is a
-    scalar or a per-landmark (L,) tensor."""
+    """Scatter-add Gaussian blobs: a 7x7 stamp per landmark, each pixel's
+    stamps added in landmark order. ``sigma`` is a scalar or a per-landmark
+    (L,) tensor."""
     R = 3
     dev = u.device
     iu = torch.round(u).long()
@@ -74,21 +126,39 @@ def _splat(u, v, lum, height, width, sigma):
     dy, dx = torch.meshgrid(offs, offs, indexing="ij")
     sig = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
     sig = sig[:, None, None] if sig.dim() == 1 else sig
-    w = torch.exp(-(dx ** 2 + dy ** 2) / (2 * sig * sig))
+    # float64 exp rounded once: the float32 exp of the CPU and of the card
+    # differ in the last bit
+    w = torch.exp((-(dx ** 2 + dy ** 2) / (2 * sig * sig)).double()).float()
     w = torch.broadcast_to(w, (u.shape[0], 2 * R + 1, 2 * R + 1))
     rows = iv[:, None, None] + dy[None]
     cols = iu[:, None, None] + dx[None]
     vals = lum[:, None, None] * w
     inb = (rows >= 0) & (rows < height) & (cols >= 0) & (cols < width)
     flat = torch.where(inb, rows * width + cols, height * width)
-    img = torch.zeros((height * width + 1,), dtype=torch.float32, device=dev)
-    img.index_add_(0, flat.reshape(-1), torch.where(inb, vals, 0.0).reshape(-1))
-    return torch.clamp(img[: height * width].reshape(height, width), 0.0, 255.0)
+    img = segment_sum_fixed(torch.where(inb, vals, 0.0).reshape(-1), flat.reshape(-1),
+                            height * width)
+    return torch.clamp(img.reshape(height, width), 0.0, 255.0)
+
+
+def _dot3(a0, b0, a1, b1, a2, b2):
+    """a0 b0 + a1 b1 + a2 b2 as a product and two fused multiply-adds in that
+    order (``numerics.fma32``), the rounding of the CPU's matrix product."""
+    return fma32(a2, b2, fma32(a1, b1, a0 * b0))
+
+
+def _to_camera(T_wc: lie.SE3, pts: torch.Tensor) -> torch.Tensor:
+    """``lie.apply(lie.inverse(T_wc), pts)`` for (N, 3) world points, equal
+    to the CPU's matrix products bit for bit and rounded alike on the card,
+    whose matrix product sums in its library's order."""
+    R, t = T_wc.R, T_wc.t
+    t_inv = [-_dot3(R[0, i], t[0], R[1, i], t[1], R[2, i], t[2]) for i in range(3)]
+    return torch.stack([_dot3(pts[:, 0], R[0, i], pts[:, 1], R[1, i], pts[:, 2], R[2, i])
+                        + t_inv[i] for i in range(3)], dim=-1)
 
 
 def _eye_image(K: Intrinsics, landmarks: torch.Tensor, T_cam: lie.SE3, lum, sig,
                width: int, height: int, max_depth: float) -> torch.Tensor:
-    p_c = lie.apply(lie.inverse(T_cam), landmarks)
+    p_c = _to_camera(T_cam, landmarks)
     uvr, z_ok = project_stereo(K, p_c)
     vis = z_ok & (p_c[..., 2] < max_depth)
     return _splat(uvr[..., 0], uvr[..., 1], torch.where(vis, lum, 0.0), height, width, sig)
@@ -129,7 +199,7 @@ def render_rgbd(K: Intrinsics, landmarks: torch.Tensor, T_wc: lie.SE3,
     of the reference's RGB-D input (orb_slam3 rgbd.launch.py)."""
     lum, sig = _blob_style(landmarks, splat_sigma)
     img = _eye_image(K, landmarks, T_wc, lum, sig, width, height, max_depth)
-    p_c = lie.apply(lie.inverse(T_wc), landmarks)
+    p_c = _to_camera(T_wc, landmarks)
     uvr, z_ok = project_stereo(K, p_c)
     vis = z_ok & (p_c[..., 2] < max_depth)
     depth = _splat_depth(uvr[..., 0], uvr[..., 1],

@@ -110,12 +110,17 @@ def _set_drop(buf: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return ext[:n]
 
 
-def _add_drop(buf: torch.Tensor, idx: torch.Tensor, value: int) -> torch.Tensor:
-    """``buf.at[idx].add(value, mode="drop")`` for a scalar value."""
+def _add_drop(buf: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """``buf.at[idx].add(value, mode="drop")`` for a scalar value or one value
+    an index; indices may repeat (use it for integers, which add exactly in
+    any order)."""
     n = buf.shape[0]
     ext = torch.cat([buf, buf[:1]], dim=0)
-    vals = torch.full((idx.shape[0],) + tuple(buf.shape[1:]), value, dtype=buf.dtype,
-                      device=buf.device)
+    shape = (idx.shape[0],) + tuple(buf.shape[1:])
+    if isinstance(value, torch.Tensor):
+        vals = torch.broadcast_to(value.to(buf.dtype), shape)
+    else:
+        vals = torch.full(shape, value, dtype=buf.dtype, device=buf.device)
     return ext.index_add_(0, _routed(idx, n), vals)[:n]
 
 
@@ -465,3 +470,30 @@ def local_ba(m: SlamMap, K: Intrinsics, window: int = 8, max_obs_local: int = 81
     p_anchor = (m.kf_T_cw.R[a] @ m.lm_pos[..., :, None])[..., 0] + m.kf_T_cw.t[a]
     return m._replace(lm_pos_anchor=torch.where((m.lm_valid & anchor_in)[:, None],
                                                 p_anchor, m.lm_pos_anchor))
+
+
+def global_ba(m: SlamMap, K: Intrinsics, iters: int = 8):
+    """Global bundle adjustment over the whole map: every valid keyframe
+    (keyframe 0 holds the gauge) and every valid landmark against the whole
+    observation table (ORB-SLAM3's loop-closing GBA, SURVEY.md §2.1 S1,
+    §3.4), then the anchor-frame positions refreshed. At 128 keyframes and
+    20480 landmarks the dense coupling blocks Y and Y·Hll^-1 are (128, 20480,
+    6, 3) float32, 189 MB each. Returns (map, BAStats)."""
+    K_cap = m.kf_valid.shape[0]
+    obs = Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr, sigma2=m.obs_sigma2,
+                       valid=m.obs_valid)
+    fixed_kf = torch.logical_not(m.kf_valid) | (torch.arange(K_cap, device=m.kf_valid.device) == 0)
+    prob = BAProblem(T_cw=m.kf_T_cw, points=m.lm_pos, obs=obs, fixed_kf=fixed_kf,
+                     fixed_lm=torch.logical_not(m.lm_valid))
+    out, stats = bundle_adjust(K, prob, iters=iters, damping=1e-3)
+    keep = m.kf_valid[:, None]
+    m = m._replace(
+        kf_T_cw=lie.SE3(torch.where(keep[..., None], out.T_cw.R, m.kf_T_cw.R),
+                        torch.where(keep, out.T_cw.t, m.kf_T_cw.t)),
+        lm_pos=torch.where(m.lm_valid[:, None], out.points, m.lm_pos),
+    )
+    # every anchor may have moved
+    a = m.lm_anchor_kf.long()
+    p_anchor = (m.kf_T_cw.R[a] @ m.lm_pos[..., :, None])[..., 0] + m.kf_T_cw.t[a]
+    return m._replace(lm_pos_anchor=torch.where(m.lm_valid[:, None], p_anchor,
+                                                m.lm_pos_anchor)), stats

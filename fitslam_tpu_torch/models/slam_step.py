@@ -7,8 +7,9 @@ The reference's three ``lax.cond``s are host branches here:
 - ``can_insert`` costs one ``.item()`` every frame;
 - the landmark-recycling test costs one more ``.item()`` on keyframe frames.
 Those reads are the step's only host syncs; ``_backend_body`` returns their
-count and the inserted flag so callers can mirror and report them. Loop
-detection (the reference's ``loop_min_gap``) is not in this slice.
+count and the inserted flag so callers can mirror and report them. With
+``loop_min_gap > 0`` a keyframe's loop candidate is retrieved inside the step
+(``loop_closing.detect_loop``) and rides the frame's outputs to the poll.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from fitslam_tpu_torch.models import slam_map as sm
 from fitslam_tpu_torch.models import tracking as tr
+from fitslam_tpu_torch.models.loop_closing import detect_loop
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics
 from fitslam_tpu_torch.ops.place import signature_from_descriptors
@@ -32,8 +34,8 @@ class StepOutputs(NamedTuple):
     ref_kf: torch.Tensor        # () int32 reference keyframe at this frame
     ref_T_cw_R: torch.Tensor    # (3, 3) reference KF camera-from-world then
     ref_T_cw_t: torch.Tensor    # (3,)
-    loop_cand: torch.Tensor     # () int32 (-1: loop detection is not in this slice)
-    loop_score: torch.Tensor    # () float32
+    loop_cand: torch.Tensor     # () int32 loop candidate keyframe (-1 unless detected)
+    loop_score: torch.Tensor    # () float32 its retrieval score (-inf unless detected)
 
 
 def _backend_body(
@@ -48,7 +50,8 @@ def _backend_body(
     kf_min_interval, kf_translation, kf_rotation, kf_min_tracked_ratio,
     scale_factor, ba_window, ba_max_obs, ba_iters, cull_min_obs,
     wide_radius=96.0, reinit_after_lost=6, match_ratio=0.8, ba_covis=True,
-    recycle_at_fraction=0.92, recycle_target_fraction=0.7, max_spawn_depth=1e9,
+    recycle_at_fraction=0.92, recycle_target_fraction=0.7, loop_min_gap=0,
+    max_spawn_depth=1e9,
 ) -> Tuple[sm.SlamMap, tr.TrackState, StepOutputs, bool, int]:
     """One frame through the backend. ``initialized`` must equal
     ``state.initialized``. Returns (map, state, outputs, whether a keyframe
@@ -82,6 +85,7 @@ def _backend_body(
     syncs = 1
 
     neg1 = torch.full((), -1, dtype=torch.int32, device=dev)
+    neg_inf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
     if can_insert:
         sig = signature_from_descriptors(frame.feats.desc, frame.feats.valid)
         new_map_id = (state2.map_id + reinit.to(torch.int32)).to(torch.int32)
@@ -102,8 +106,14 @@ def _backend_body(
         state_out = tr.rebase_to_kf(state2, m_out.kf_T_cw.R, m_out.kf_T_cw.t, kf_idx)
         state_out = tr.mark_keyframe(state_out, n_inl)
         state_out = state_out._replace(map_id=new_map_id)
+        if loop_min_gap > 0:
+            # retrieval against the just-updated keyframe database
+            loop_cand, loop_score = detect_loop(m_out, sig, kf_idx, min_gap=loop_min_gap)
+        else:
+            loop_cand, loop_score = neg1, neg_inf
     else:
         m_out, state_out, kf_idx = m, state2, neg1
+        loop_cand, loop_score = neg1, neg_inf
 
     ref = torch.clamp(m_out.n_kf - 1, min=0).to(torch.int32)
     outs = StepOutputs(
@@ -114,7 +124,7 @@ def _backend_body(
         ref_kf=ref,
         ref_T_cw_R=tr.take(m_out.kf_T_cw.R, ref),
         ref_T_cw_t=tr.take(m_out.kf_T_cw.t, ref),
-        loop_cand=neg1,
-        loop_score=torch.full((), float("-inf"), dtype=torch.float32, device=dev),
+        loop_cand=loop_cand,
+        loop_score=loop_score,
     )
     return m_out, state_out, outs, can_insert, syncs

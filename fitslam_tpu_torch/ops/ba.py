@@ -1,11 +1,13 @@
 """Bundle adjustment as batched dense linear algebra (port of
 ``fitslam_tpu/ops/ba.py``: motion-only pose solve, Schur-complement
-Gauss-Newton BA, residual-only chi2).
+Gauss-Newton BA, residual-only chi2, linear landmark re-triangulation).
 
 The reference's ``lax.scan`` iterations are Python loops here; each step's
 accept/reject stays a ``torch.where`` so no iteration waits for the device.
-``segment_sum`` becomes ``index_add_`` (atomics on the GPU, so sums are taken
-in another order than on the CPU: ROADMAP fault F5) and the dense solves are
+``segment_sum`` is ``numerics.segment_sum_fixed``: each segment adds its rows
+in order, as the reference's CPU scatter does, and alike on every run of the
+card (ROADMAP fault F17); ``bundle_adjust`` sorts its three id sets once and
+reuses the plans in every iteration. The dense solves are
 ``torch.linalg.solve_ex`` in float32, which does not synchronise to check for
 singular systems.
 """
@@ -19,6 +21,7 @@ import torch
 
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics, huber_weight
+from fitslam_tpu_torch.ops.numerics import SegmentPlan, segment_plan, segment_sum_fixed
 
 # the reference computes these thresholds as float32 square roots on device
 _SQRT_CHI2_STEREO = float(np.sqrt(np.float32(7.815)))
@@ -140,33 +143,40 @@ def chi2_residuals(K: Intrinsics, T_cw: lie.SE3, points: torch.Tensor,
     return torch.sum(torch.where(ok, torch.clamp(chi2, max=7.815 * 4), torch.zeros_like(chi2)))
 
 
-def _segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + tuple(data.shape[1:]), dtype=data.dtype, device=data.device)
-    return out.index_add_(0, ids.long(), data)
+class SumPlans(NamedTuple):
+    """The fixed summation orders of one BA problem's observations: by
+    keyframe, by landmark and by (keyframe, landmark) block."""
+
+    kf: SegmentPlan
+    lm: SegmentPlan
+    block: SegmentPlan
 
 
-def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float):
+def sum_plans(obs: Observations, K_n: int, L_n: int) -> SumPlans:
+    kf, lm = obs.kf.long(), obs.lm.long()
+    return SumPlans(segment_plan(kf, K_n), segment_plan(lm, L_n),
+                    segment_plan(kf * L_n + lm, K_n * L_n))
+
+
+def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float,
+                 plans: SumPlans):
     """One Gauss-Newton step via Schur complement.
     Returns (delta_pose (K, 6), delta_point (L, 3))."""
     K_n = prob.T_cw.t.shape[0]
     L_n = prob.points.shape[0]
     obs = prob.obs
     dev = res.device
-    O_n = obs.kf.shape[0]
 
     Jp_w = J_pose * w[:, None, None]     # (O, 3, 6)
     Jl_w = J_point * w[:, None, None]    # (O, 3, 3)
 
-    Hpp = _segment_sum(torch.einsum("oij,oik->ojk", Jp_w, J_pose).reshape(O_n, 36),
-                       obs.kf, K_n).reshape(K_n, 6, 6)
-    Hll = _segment_sum(torch.einsum("oij,oik->ojk", Jl_w, J_point).reshape(O_n, 9),
-                       obs.lm, L_n).reshape(L_n, 3, 3)
-    bp = -_segment_sum(torch.einsum("oij,oi->oj", Jp_w, res), obs.kf, K_n)
-    bl = -_segment_sum(torch.einsum("oij,oi->oj", Jl_w, res), obs.lm, L_n)
+    Hpp = segment_sum_fixed(torch.einsum("oij,oik->ojk", Jp_w, J_pose), obs.kf, K_n, plans.kf)
+    Hll = segment_sum_fixed(torch.einsum("oij,oik->ojk", Jl_w, J_point), obs.lm, L_n, plans.lm)
+    bp = -segment_sum_fixed(torch.einsum("oij,oi->oj", Jp_w, res), obs.kf, K_n, plans.kf)
+    bl = -segment_sum_fixed(torch.einsum("oij,oi->oj", Jl_w, res), obs.lm, L_n, plans.lm)
 
     Hpl_o = torch.einsum("oij,oik->ojk", Jp_w, J_point)   # (O, 6, 3)
-    flat_idx = obs.kf.long() * L_n + obs.lm.long()
-    Y = _segment_sum(Hpl_o.reshape(O_n, 18), flat_idx, K_n * L_n).reshape(K_n, L_n, 6, 3)
+    Y = segment_sum_fixed(Hpl_o, None, K_n * L_n, plans.block).reshape(K_n, L_n, 6, 3)
 
     eye3 = torch.eye(3, dtype=Hll.dtype, device=dev)
     diag_l = torch.einsum("lii->l", Hll)[:, None, None] / 3.0
@@ -224,10 +234,12 @@ def bundle_adjust(K: Intrinsics, prob: BAProblem, iters: int = 6,
     it increases the robust chi2."""
     chis, ninl = [], []
     p = prob
+    # the observation table is fixed across iterations, so are the sums' orders
+    plans = sum_plans(prob.obs, prob.T_cw.t.shape[0], prob.points.shape[0])
     for _ in range(iters):
         res, J_pose, J_point, w, ok, chi2 = linearize(K, p)
         w = torch.where(ok, w, torch.zeros_like(w))
-        dp, dl = _schur_solve(p, res, J_pose, J_point, w, damping)
+        dp, dl = _schur_solve(p, res, J_pose, J_point, w, damping, plans)
         T_new = lie.compose(lie.se3_exp(dp), p.T_cw)
         cand = p._replace(T_cw=T_new, points=p.points + dl)
         c_old = _robust_chi2(ok, chi2, 7.815 * 4)
@@ -239,6 +251,55 @@ def bundle_adjust(K: Intrinsics, prob: BAProblem, iters: int = 6,
         chis.append(torch.where(accept, c_new, c_old))
         ninl.append(torch.sum(ok_new))
     return p, BAStats(torch.stack(chis), torch.stack(ninl))
+
+
+def retriangulate_points(K: Intrinsics, T_cw: lie.SE3, points: torch.Tensor,
+                         obs: Observations, lm_valid: torch.Tensor,
+                         stereo_weight: float = 1.0) -> torch.Tensor:
+    """Linear re-triangulation of every landmark from its observations: per
+    landmark, the DLT least squares over all its observation rays (two
+    image-line rows an observation, plus an absolute-depth row for stereo
+    rows: u - u_r = bf / z, weighted by ``stereo_weight``), segment-summed in
+    a fixed order into (3, 3) / (3,) normal equations and solved with the
+    closed-form 3x3 inverse. Landmarks whose system is ill-conditioned (the
+    reference's LU determinant guard) or whose solution is not finite keep
+    their current position. Returns (L, 3) positions."""
+    L_n = points.shape[0]
+    kf = obs.kf.long()
+    R, t = T_cw.R[kf], T_cw.t[kf]            # (O, 3, 3), (O, 3)
+    u, v, ur = obs.uvr[:, 0], obs.uvr[:, 1], obs.uvr[:, 2]
+    xn = (u - K.cx) / K.fx
+    yn = (v - K.cy) / K.fy
+    r0, r1, r2 = R[:, 0, :], R[:, 1, :], R[:, 2, :]
+    a1 = xn[:, None] * r2 - r0               # (O, 3)
+    b1 = t[:, 0] - xn * t[:, 2]
+    a2 = yn[:, None] * r2 - r1
+    b2 = t[:, 1] - yn * t[:, 2]
+    stereo = ur > 0.0
+    disp = torch.clamp(u - ur, min=1e-6)
+    z_meas = K.bf / disp
+    a3 = r2
+    b3 = z_meas - t[:, 2]
+    w = torch.where(obs.valid, 1.0 / obs.sigma2, torch.zeros_like(obs.sigma2))
+    w3 = stereo_weight * w * stereo.to(torch.float32)
+    AtA_o = (w[:, None, None] * (a1[:, :, None] * a1[:, None, :]
+                                 + a2[:, :, None] * a2[:, None, :])
+             + w3[:, None, None] * a3[:, :, None] * a3[:, None, :])
+    Atb_o = (w[:, None] * (a1 * b1[:, None] + a2 * b2[:, None])
+             + w3[:, None] * a3 * b3[:, None])
+    plan = segment_plan(obs.lm, L_n)
+    AtA = segment_sum_fixed(AtA_o, obs.lm, L_n, plan)
+    Atb = segment_sum_fixed(Atb_o, obs.lm, L_n, plan)
+    trace = torch.einsum("lii->l", AtA)
+    lam = 1e-5 * trace[:, None, None] / 3.0
+    eye3 = torch.eye(3, dtype=AtA.dtype, device=AtA.device)
+    AtA_d = AtA + (lam + 1e-9) * eye3
+    det = torch.linalg.det(AtA)
+    scale = torch.clamp(trace / 3.0, min=1e-12)
+    well = (det > 1e-4 * scale ** 3) & lm_valid
+    p_new = torch.einsum("lij,lj->li", inv3x3(AtA_d), Atb)
+    ok = well & torch.all(torch.isfinite(p_new), dim=-1)
+    return torch.where(ok[:, None], p_new, points)
 
 
 def solve_pose(

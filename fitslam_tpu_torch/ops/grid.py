@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from fitslam_tpu_torch.ops import lie
-from fitslam_tpu_torch.ops.numerics import div_const, fma32, sqrt32, true_div
+from fitslam_tpu_torch.ops.numerics import div_const, fma32, segment_sum_fixed, sqrt32, true_div
 
 UNKNOWN = 255
 LETHAL = 254
@@ -197,25 +197,20 @@ def cell_stats(spec: GridSpec2D, pts_w: torch.Tensor, ok: torch.Tensor):
     (N, 3), flat over the (G, G) grid in row-major (y, x) order.
 
     The sums add each cell's points sequentially in their order in ``pts_w``
-    (a stable sort by cell, then one sequential sum a cell), which is the
-    reference's CPU scatter order and the same on every run of the card;
-    max and min are exact in any order."""
+    (``numerics.segment_sum_fixed``), which is the reference's CPU scatter
+    order and the same on every run of the card; max and min are exact in
+    any order."""
     G = spec.size
     n = G * G
     cell, inb = spec.world_to_cell(pts_w[:, :2])
     ok = ok & inb
     flat = torch.where(ok, cell[:, 1].long() * G + cell[:, 0].long(), n)
     z = pts_w[:, 2]
-    keys, order = torch.sort(flat, stable=True)
-    # cell c's points are keys[offsets[c]:offsets[c + 1]]; the points outside
-    # the grid sort last and fall in no segment
-    offsets = torch.searchsorted(keys, torch.arange(n + 1, device=keys.device))
     zero = torch.zeros((), dtype=z.dtype, device=z.device)
     zz = torch.stack([ok.to(torch.float32), torch.where(ok, z, zero),
-                      torch.where(ok, z * z, zero)], dim=1)[order]
-    # (N, 3) data: one thread a segment and column, adding in order
-    sums = torch.segment_reduce(zz, "sum", offsets=offsets, axis=0, unsafe=True,
-                                initial=0.0)
+                      torch.where(ok, z * z, zero)], dim=1)
+    # the points outside the grid (cell n) fall in no segment
+    sums = segment_sum_fixed(zz, flat, n)
     z_mx = torch.full((n + 1,), -math.inf, dtype=z.dtype, device=z.device).scatter_reduce_(
         0, flat, torch.where(ok, z, -math.inf), "amax")
     z_mn = torch.full((n + 1,), math.inf, dtype=z.dtype, device=z.device).scatter_reduce_(

@@ -182,3 +182,16 @@ def apply(T: SE3, pts: torch.Tensor) -> torch.Tensor:
     if pts.dim() == T.t.dim():
         return (T.R @ pts[..., :, None])[..., 0] + T.t
     return pts @ T.R.transpose(-1, -2) + T.t[..., None, :]
+
+
+def yaw_to_rotmat(yaw: torch.Tensor) -> torch.Tensor:
+    """(...) yaw about +z -> (..., 3, 3). Planar-rover helper."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    z = torch.zeros_like(c)
+    o = torch.ones_like(c)
+    rows = [
+        torch.stack([c, -s, z], dim=-1),
+        torch.stack([s, c, z], dim=-1),
+        torch.stack([z, z, o], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)

@@ -1,9 +1,13 @@
 """Float32 arithmetic that rounds as the reference does, alike on the CPU and
-on the card (ROADMAP faults F2, F13, F15). The port's ops import these
-wherever a result's last bit decides a cell, a bin or an order.
+on the card (ROADMAP faults F2, F13, F15), and float32 sums in a fixed order
+(F17, F18). The port's ops import these wherever a result's last bit decides
+a cell, a bin, an order or whether two runs repeat.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,3 +47,38 @@ def top_k_stable(x: torch.Tensor, k: int):
     """Exact top-k with ``lax.top_k``'s tie order (lowest index first)."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k]
+
+
+class SegmentPlan(NamedTuple):
+    """A fixed summation order for ``segment_sum_fixed``: the stable sort of
+    the ids and each segment's range in it."""
+
+    order: torch.Tensor     # (N,) int64 rows sorted by id, ties in row order
+    offsets: torch.Tensor   # (n + 1,) int64 segment s is order[offsets[s]:offsets[s + 1]]
+
+
+def segment_plan(ids: torch.Tensor, n: int) -> SegmentPlan:
+    """The order in which ``segment_sum_fixed`` adds the rows of segment ids
+    ``ids`` into ``n`` segments. Ids outside [0, n) fall in no segment.
+    Build it once where the ids stay fixed across several sums."""
+    ids = ids.long()
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    keys, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(keys, torch.arange(n + 1, device=ids.device))
+    return SegmentPlan(order, offsets)
+
+
+def segment_sum_fixed(data: torch.Tensor, ids: torch.Tensor, n: int,
+                      plan: SegmentPlan = None) -> torch.Tensor:
+    """``jax.ops.segment_sum`` that adds each segment's rows one after the
+    other in row order, as the reference's CPU scatter does, on the CPU and
+    alike on every run of the card (ROADMAP faults F17, F18). CUDA's
+    ``index_add_`` adds float32 by atomics in an order that changes from run
+    to run; here each segment is one sequential sum of ``torch.segment_reduce``.
+    Returns (n, *data.shape[1:])."""
+    if plan is None:
+        plan = segment_plan(ids, n)
+    flat = data.reshape(data.shape[0], math.prod(data.shape[1:]))[plan.order]
+    out = torch.segment_reduce(flat, "sum", offsets=plan.offsets, axis=0, unsafe=True,
+                               initial=0.0)
+    return out.reshape((n,) + tuple(data.shape[1:]))

@@ -5,8 +5,9 @@ so the pair maps file to file).
 ``hamming_top2`` launches the hand-written CUDA kernel ``csrc/hamming_top2.cu``
 on CUDA tensors and runs ``hamming_top2_plain``, its plain PyTorch twin, on
 CPU tensors. On the port's main path K2 carries ``matching.match_stereo`` and
-``matching.match_windowed``; the reference left those to XLA's fused matmul
-and kept its Pallas kernel for parity tests.
+``matching.match_windowed``, and ``match_ratio_fused`` for loop verification
+and relocalization (``models/loop_closing.verify_loop``); the reference left
+those to XLA's fused matmul and kept its Pallas kernel for parity tests.
 
 Differences from the reference kernel's outputs: distances are int32 and the
 "no candidate" sentinel is 512 (the reference kernel uses 1e6), which is the
@@ -206,3 +207,22 @@ def hamming_top2(a_bits: torch.Tensor, valid_a: torch.Tensor, b_bits: torch.Tens
 
 #: K2 calls on CUDA tensors since the count was last reset
 hamming_top2.launches = 0
+
+
+def match_ratio_fused(bits_a: torch.Tensor, valid_a: torch.Tensor, bits_b: torch.Tensor,
+                      valid_b: torch.Tensor, max_distance: int = 64, ratio: float = 0.8,
+                      mutual: bool = True):
+    """``matching.match_ratio(hamming_matrix(...), ...)`` on K2 with no gate:
+    the distance matrix never reaches memory. Descriptors are packed
+    (``orb.pack_descriptors``). The mutual check keeps a row only where it is
+    its best column's best row, read from K2's column argmin (lowest row on
+    ties, as ``jnp.argmin`` over the reference's distance matrix). Returns
+    ``matching.Matches``."""
+    from fitslam_tpu_torch.ops.matching import Matches
+
+    t = hamming_top2(bits_a, valid_a, bits_b, valid_b, GATE_NONE)
+    ok = (t.best <= max_distance) & (t.best.float() < ratio * t.second.float())
+    if mutual:
+        rows = torch.arange(bits_a.shape[0], dtype=torch.int32, device=bits_a.device)
+        ok = ok & (t.col_best[t.idx.long()] == rows)
+    return Matches(t.idx, t.best, ok)

@@ -53,7 +53,7 @@ class TrackingConfig:
     search_radius_px: float = 24.0
     wide_radius_px: float = 96.0
     reinit_after_lost: int = 6              # frames lost before reinit KF
-    reloc_enabled: bool = True              # the port raises unless False
+    reloc_enabled: bool = True
     reloc_after_lost: int = 2
     reloc_min_score: float = 0.1
     reloc_min_inliers: int = 20
@@ -85,7 +85,7 @@ class MappingConfig:
 
 @dataclass(frozen=True)
 class LoopConfig:
-    enabled: bool = True            # the port raises unless False
+    enabled: bool = True
     vocab_dim: int = 256
     min_score: float = 0.22
     min_gap_keyframes: int = 20

@@ -1,7 +1,6 @@
-"""Absolute trajectory error, path length and coverage (the parts of
-``fitslam_tpu/utils/evaluation.py`` the ported slices report), in numpy on
-the host: evaluation never touches device state. ``tests/test_torch_utils.py``
-holds them equal to the reference."""
+"""Absolute and relative trajectory error, path length and coverage (port of
+``fitslam_tpu/utils/evaluation.py``), in numpy on the host: evaluation never
+touches device state. The tests hold them equal to the reference."""
 
 from __future__ import annotations
 
@@ -24,18 +23,42 @@ def umeyama_alignment(est: np.ndarray, gt: np.ndarray) -> Tuple[np.ndarray, np.n
 
 
 def ate_rmse(traj_est: Sequence[np.ndarray], traj_gt: Sequence[np.ndarray],
-             align: bool = True) -> float:
+             align: bool = True, with_scale: bool = False) -> float:
     """Absolute trajectory error RMSE over positions, after an SE(3)
-    alignment. Inputs: lists of 4x4 world-from-camera matrices or (N, 3)
-    position arrays."""
+    alignment, or a Sim(3) one with ``with_scale`` (the TUM/evo ``--scale``
+    mode: the gap between the two isolates a uniform map-scale error, which
+    loop closure cannot observe). Inputs: lists of 4x4 world-from-camera
+    matrices or (N, 3) position arrays."""
     p_e = _positions(traj_est)
     p_g = _positions(traj_gt)
     n = min(len(p_e), len(p_g))
     p_e, p_g = p_e[:n], p_g[:n]
     if align and n >= 3:
-        R, t = umeyama_alignment(p_e, p_g)
-        p_e = p_e @ R.T + t
+        if with_scale:
+            mu_e, mu_g = p_e.mean(0), p_g.mean(0)
+            E, G = p_e - mu_e, p_g - mu_g
+            U, D, Vt = np.linalg.svd(E.T @ G)
+            S = np.eye(3)
+            if np.linalg.det(U @ Vt) < 0:
+                S[2, 2] = -1.0
+            R = (U @ S @ Vt).T
+            var_e = np.mean(np.sum(E * E, axis=1))
+            s = float(np.sum(D * np.diag(S)) / (len(E) * var_e))
+            p_e = (s * (E @ R.T)) + mu_g
+        else:
+            R, t = umeyama_alignment(p_e, p_g)
+            p_e = p_e @ R.T + t
     return float(np.sqrt(np.mean(np.sum((p_e - p_g) ** 2, axis=1))))
+
+
+def rpe_rmse(traj_est, traj_gt, delta: int = 1) -> float:
+    """Relative pose error (translation) RMSE over ``delta``-frame increments."""
+    p_e = _positions(traj_est)
+    p_g = _positions(traj_gt)
+    n = min(len(p_e), len(p_g))
+    de = p_e[delta:n] - p_e[: n - delta]
+    dg = p_g[delta:n] - p_g[: n - delta]
+    return float(np.sqrt(np.mean(np.sum((de - dg) ** 2, axis=1))))
 
 
 def path_length(traj) -> float:

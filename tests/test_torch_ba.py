@@ -149,3 +149,60 @@ def test_inv3x3():
     A = A @ A.transpose(0, 2, 1) + np.eye(3, dtype=np.float32)
     ref = np.asarray(jax.jit(jba.inv3x3)(A))
     np.testing.assert_allclose(tba.inv3x3(torch.tensor(A)).numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,n,width", [(1, 1, 1), (500, 40, 9), (3000, 7, 3), (2000, 900, 18)])
+def test_segment_sum_fixed_equals_sequential_sum(rows, n, width):
+    """The fixed-order segment sum is bit-equal to adding each row, in row
+    order, into its segment (ids outside [0, n) dropped), however the data's
+    magnitudes mix, and a plan built once gives the same."""
+    from fitslam_tpu_torch.ops.numerics import segment_plan, segment_sum_fixed
+
+    rng = np.random.RandomState(rows + n)
+    data = (rng.standard_normal((rows, width))
+            * 10.0 ** rng.uniform(-4, 4, (rows, 1))).astype(np.float32)
+    ids = rng.randint(-2, n + 2, rows)
+    ref = np.zeros((n, width), np.float32)
+    for row, i in zip(data, ids):
+        if 0 <= i < n:
+            ref[i] = ref[i] + row
+    got = segment_sum_fixed(torch.tensor(data), torch.tensor(ids), n)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    plan = segment_plan(torch.tensor(ids), n)
+    shaped = segment_sum_fixed(torch.tensor(data).reshape(rows, width, 1), None, n, plan)
+    np.testing.assert_array_equal(shaped.numpy()[..., 0], ref)
+
+
+def test_global_ba_matches_reference():
+    """slam_map.global_ba on a map holding the planted problem: keyframe 0 is
+    the gauge, every valid landmark moves, the anchor-frame positions are
+    refreshed; poses within 1e-4, points within 1e-4 (as bundle_adjust)."""
+    from fitslam_tpu.models import slam_map as jsm
+    from fitslam_tpu_torch.models import slam_map as tsm
+
+    prob = _ba_problem(3)
+    n_kf, n_lm = prob.T_cw.t.shape[0], prob.points.shape[0]
+    K_cap, L_cap, O = n_kf + 2, n_lm + 5, prob.obs.kf.shape[0]
+    m = jsm.empty_map(K_cap, L_cap, O, signature_dim=8)
+    m = m._replace(
+        kf_T_cw=jlie.SE3(m.kf_T_cw.R.at[:n_kf].set(prob.T_cw.R),
+                         m.kf_T_cw.t.at[:n_kf].set(prob.T_cw.t)),
+        kf_valid=jnp.arange(K_cap) < n_kf, n_kf=jnp.int32(n_kf),
+        lm_pos=m.lm_pos.at[:n_lm].set(prob.points),
+        lm_valid=jnp.arange(L_cap) < n_lm,
+        lm_anchor_kf=jnp.asarray(np.random.RandomState(0).randint(0, n_kf, L_cap), jnp.int32),
+        obs_kf=jnp.asarray(prob.obs.kf), obs_lm=jnp.asarray(prob.obs.lm),
+        obs_uvr=jnp.asarray(prob.obs.uvr), obs_sigma2=jnp.asarray(prob.obs.sigma2),
+        obs_valid=jnp.asarray(prob.obs.valid))
+    K = _K()
+    ref, st_ref = jax.tree.map(np.asarray, jsm.global_ba(m, K, iters=4))
+    got, st = tsm.global_ba(interop.to_torch(jax.tree.map(np.asarray, m)), interop.to_torch(K),
+                            iters=4)
+    got = interop.to_numpy(got)
+    np.testing.assert_allclose(got.kf_T_cw.R, ref.kf_T_cw.R, atol=1e-4)
+    np.testing.assert_allclose(got.kf_T_cw.t, ref.kf_T_cw.t, atol=1e-4)
+    np.testing.assert_allclose(got.lm_pos, ref.lm_pos, atol=1e-4)
+    np.testing.assert_allclose(got.lm_pos_anchor, ref.lm_pos_anchor, atol=1e-4)
+    np.testing.assert_allclose(st.chi2.numpy(), st_ref.chi2, rtol=1e-3)
+    np.testing.assert_array_equal(got.kf_T_cw.t[0], np.asarray(m.kf_T_cw.t[0]))
+    assert st_ref.chi2[-1] < st_ref.chi2[0]

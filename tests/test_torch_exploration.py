@@ -262,9 +262,8 @@ def test_fi_ladder_and_recovery_follow_the_reference():
     assert pt == pj
 
 
-def test_path_information_branch_raises_not_implemented(monkeypatch):
-    """The fisher_information_in_path branch (named for the NotImplementedError
-    it raised before ops/fisher.py was ported): one tick with
+def test_path_information_branch_matches_reference(monkeypatch):
+    """The fisher_information_in_path branch: one tick with
     min_path_information > 0 and a landmark map west of the robot gives the
     reference's path information per frontier (within 1e-5 relative), the
     same achievable frontiers and the same goal."""

@@ -235,3 +235,95 @@ def test_k3_wavefront_potential_on_rooms_world(cuda):
     occ_cpu = occ.cpu()
     ref = nav.wavefront_potential(spec, occ_cpu, goal.cpu(), iters=512)
     assert torch.equal(pot.cpu(), ref)
+
+
+@pytest.mark.parametrize("na,nb", [(1024, 20480), (1000, 20001)])
+def test_k2_loop_verification_equal_to_cpu(cuda, na, nb):
+    """match_ratio_fused (loop verification: no gate, ratio 0.85, mutual
+    check from K2's column argmin) with a sparse landmark mask of 300
+    columns: the card's matches equal the CPU's (its plain twin)."""
+    rng = np.random.RandomState(na + nb)
+    a = np.where(rng.rand(na, 256) < 0.5, 1.0, -1.0).astype(np.float32)
+    b = np.where(rng.rand(nb, 256) < 0.5, 1.0, -1.0).astype(np.float32)
+    cols = rng.choice(nb, 300, replace=False)
+    for i, c in enumerate(cols[:200]):            # planted matches, 0-12 flipped bits
+        b[c] = np.where(rng.rand(256) < rng.uniform(0.0, 0.05), -a[i], a[i])
+    b[cols[250]] = b[cols[251]] = a[300]          # a row tie
+    vb = np.zeros(nb, bool)
+    vb[cols] = True
+    bits_a = orb.pack_descriptors(torch.tensor(a).to(torch.bfloat16))
+    bits_b = orb.pack_descriptors(torch.tensor(b).to(torch.bfloat16))
+    va = torch.ones(na, dtype=torch.bool)
+    vb = torch.tensor(vb)
+    before = pm.hamming_top2.launches
+    got = pm.match_ratio_fused(bits_a.to(cuda), va.to(cuda), bits_b.to(cuda), vb.to(cuda),
+                               max_distance=64, ratio=0.85, mutual=True)
+    assert pm.hamming_top2.launches == before + 1
+    ref = pm.match_ratio_fused(bits_a, va, bits_b, vb, max_distance=64, ratio=0.85, mutual=True)
+    for x, y in zip(got, ref):
+        assert torch.equal(x.cpu(), y)
+    assert int(ref.valid.sum()) > 150
+
+
+def test_render_repeats_and_equals_cpu(cuda):
+    """The ring renderer sums overlapping blobs in a fixed order (F18): a
+    frame rendered twice on the card is bit-equal, and equals the CPU's."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.ops import lie
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+
+    T = synthetic.loop_trajectory(150, radius=8.0, device="cpu")
+    pose = lie.SE3(T.R[40], T.t[40])
+    out = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        K = Intrinsics(*(torch.tensor(v, dtype=torch.float32, device=dev)
+                         for v in (400.0, 400.0, 320.0, 240.0, 0.2)))
+        world = synthetic.load_ring_world(1, device=dev)
+        out.append(synthetic.render_stereo(K, world, lie.SE3(pose.R.to(dev), pose.t.to(dev)),
+                                           width=640, height=480, max_depth=14.0))
+    for eye in range(2):
+        assert torch.equal(out[0][eye], out[1][eye])
+        assert torch.equal(out[0][eye].cpu(), out[2][eye])
+    assert float(out[2][0].max()) > 100.0
+
+
+def test_bundle_adjust_repeats_and_matches_cpu(cuda):
+    """BA's normal equations add in a fixed order (F17): two card calls are
+    bit-equal; against the CPU poses agree within 1e-4 m and points within
+    1e-3 m (float32 LU solves and products of another order)."""
+    from fitslam_tpu_torch.ops import ba, lie
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+
+    rng = np.random.RandomState(7)
+    n_kf, n_lm = 6, 300
+    pts = np.stack([rng.uniform(-4, 4, n_lm), rng.uniform(-2, 2, n_lm),
+                    rng.uniform(4, 12, n_lm)], -1).astype(np.float32)
+    xi = np.zeros((n_kf, 6), np.float32)
+    xi[:, 0] = 0.3 * np.arange(n_kf)
+    T_true = lie.se3_exp(torch.tensor(xi))
+    kf, lm = np.repeat(np.arange(n_kf), n_lm), np.tile(np.arange(n_lm), n_kf)
+    pc = (T_true.R.numpy()[kf] @ pts[lm][..., None])[..., 0] + T_true.t.numpy()[kf]
+    u, v = 400 * pc[:, 0] / pc[:, 2] + 320, 400 * pc[:, 1] / pc[:, 2] + 240
+    uvr = (np.stack([u, v, u - 80.0 / pc[:, 2]], -1)
+           + rng.normal(scale=0.5, size=(len(kf), 3))).astype(np.float32)
+    T0 = lie.compose(lie.se3_exp(torch.tensor(rng.normal(scale=0.02, size=(n_kf, 6)),
+                                              dtype=torch.float32)), T_true)
+    pts0 = pts + rng.normal(scale=0.05, size=pts.shape).astype(np.float32)
+
+    def solve(d):
+        K = Intrinsics(*(torch.tensor(x, dtype=torch.float32, device=d)
+                         for x in (400.0, 400.0, 320.0, 240.0, 0.2)))
+        obs = ba.Observations(torch.tensor(kf, dtype=torch.int32, device=d),
+                              torch.tensor(lm, dtype=torch.int32, device=d),
+                              torch.tensor(uvr, device=d), torch.ones(len(kf), device=d),
+                              torch.ones(len(kf), dtype=torch.bool, device=d))
+        prob = ba.BAProblem(lie.SE3(T0.R.to(d), T0.t.to(d)), torch.tensor(pts0, device=d), obs,
+                            torch.arange(n_kf, device=d) == 0,
+                            torch.zeros(n_lm, dtype=torch.bool, device=d))
+        return ba.bundle_adjust(K, prob, iters=6)[0]
+
+    a, b, c = solve(cuda), solve(cuda), solve(torch.device("cpu"))
+    assert torch.equal(a.T_cw.t, b.T_cw.t) and torch.equal(a.T_cw.R, b.T_cw.R)
+    assert torch.equal(a.points, b.points)
+    np.testing.assert_allclose(a.T_cw.t.cpu().numpy(), c.T_cw.t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(a.points.cpu().numpy(), c.points.numpy(), atol=1e-3)

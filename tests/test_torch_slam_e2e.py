@@ -7,7 +7,9 @@ Bounds: the golden replay is held to the reference's own golden bounds (ATE
 runs the same arithmetic as the sync path, so their poses are equal.
 """
 
+import ast
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -119,12 +121,17 @@ def test_interleaved_sync_frames_keep_event_frame_ids(golden):
 
 
 @pytest.mark.parametrize("flag", ["loop", "reloc"])
-def test_unported_features_raise(flag):
+def test_loop_closing_and_relocalization_construct(flag):
+    """With loop closing or relocalization on, and with the default config
+    (both on), the engine constructs on the CPU."""
     cfg = _config(reloc_enabled=(flag == "reloc"))
     if flag == "loop":
         cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, enabled=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        StereoSlam(cfg, "cpu")
+    slam = StereoSlam(cfg, "cpu")
+    assert (slam.loop_closer is not None) == (flag == "loop")
+    assert slam.cfg.tracking.reloc_enabled == (flag == "reloc")
+    default = StereoSlam(FitSlamConfig(), "cpu")
+    assert default.loop_closer is not None and default.cfg.tracking.reloc_enabled
 
 
 def test_tf32_is_disabled_by_the_engine():
@@ -136,7 +143,20 @@ def test_tf32_is_disabled_by_the_engine():
 
 
 def test_port_imports_no_jax():
-    """The whole port and chip_smoke.py load neither jax nor the reference."""
+    """The whole port and chip_smoke.py load neither jax nor the reference,
+    and no string in the port's code (docstrings aside) names a path under
+    the reference package's folder, so the port reads none of its files."""
+    naming = []
+    for path in sorted((ROOT / "fitslam_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        docs = {id(node.body[0].value) for node in ast.walk(tree)
+                if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and node.body and isinstance(node.body[0], ast.Expr)}
+        naming += [f"{path.name}:{node.lineno}" for node in ast.walk(tree)
+                   if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                   and id(node) not in docs
+                   and re.search(r"(^|[/\\])fitslam_tpu([/\\]|$)", node.value)]
+    assert not naming, naming
     code = (
         "import importlib, pkgutil, sys\n"
         "import fitslam_tpu_torch as p\n"
