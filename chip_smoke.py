@@ -5,7 +5,8 @@
 Phases, each printing one line (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit, and
      the nvcc build of the three kernels (fitslam_tpu_torch/csrc/*.cu, one
-     nvcc per source, started together);
+     nvcc per source) and the g++ build of the native host runtime
+     (csrc/runtime.cc), all started together;
   2. (two lines) K1's standalone patch gather against its plain twin at the
      bench's four pyramid level shapes, including clamped borders: bit-equal;
      then K1's fused ORB describe (gather, blur, orientation and rBRIEF in one
@@ -60,10 +61,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
   9. the RGB-D arc of tests/test_rgbd_e2e.py at 640x480, 4 levels and 1024
      features (process_rgbd_frame, depth_image_to_cloud a keyframe,
      fuse_clouds, threshold_grid, extract_frontiers) held to that file's
-     bounds.
+     bounds;
+ 10. (four lines) bench_suite.py::bench_loop_slam's ring at full width
+     (seeds 1-3, seed 1 twice and bit-equal), K2's loop-verification call,
+     tests/test_atlas.py's scenarios and global BA (card = card, card vs CPU);
+ 11. corridor_seq through the port's native prefetching reader (byte-equal
+     to read_pgm), run_dataset.replay in this process and ``python -m
+     fitslam_tpu_torch.run_dataset`` as a subprocess on the card (ATE <=
+     0.025 m, an events.csv of more than 10 spans), then the committed
+     indoor_tum through TumRgbdSequence and process_rgbd_frame held to
+     tests/test_dataset_external.py's bounds (ATE <= 0.13 m, 8-30 keyframes);
+ 12. phase 8's active cell for 80 frames with the EKF on (the robot's pose
+     from its estimate, twists through a TwistMux), twice and bit-equal, held
+     to tests/test_ekf_integration.py's bounds and the active bounds at frame
+     80, then that file's dropout at full width; the cost of a flush (2
+     filters x 64 rows) and the host ms beside phase 8's.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
 pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
-gives each path's run: bench, explore, active, marsyard, rgbd), error, device times
+gives each path's run: bench, explore, active, marsyard, rgbd, loop,
+dataset, tum, ekf), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -103,6 +119,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ATE_BOUND_M = 0.025
 GOLDEN_KF_RANGE = (10, 30)
+# tests/test_dataset_external.py's golden bounds for indoor_tum (its golden:
+# 0.063 m, 18 keyframes)
+TUM_ATE_BOUND_M = 0.13
+TUM_KF_RANGE = (8, 30)
 N_BENCH_FRAMES = 60
 N_TIMED_PASSES = 3
 KERNELS = ("patch_gather", "hamming_top2", "wavefront_sweep")
@@ -146,6 +166,10 @@ REFERENCE_ABLATION_COVERAGE = 0.930
 ACTIVE_BENCH_FRAMES = 80
 ACTIVE_FRAMES = 150
 ACTIVE_TICK_EVERY = 4
+# the windows of a step of the active loop: the frame, the tick (every
+# ACTIVE_TICK_EVERY frames), the controller step and, with the EKF on, the
+# read of its estimate
+WINDOWS = ("frame", "tick", "ctrl", "pose")
 MARSYARD_FRAMES = 150
 RGBD_FRAMES = 40
 # the reference's own runs of the same loops (BENCH_SUITE.json, config 4 at
@@ -240,15 +264,26 @@ def phase_environment():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     from fitslam_tpu_torch.utils import cuda_build
 
+    from fitslam_tpu_torch.runtime import native
+
+    def timed(fn, *args):
+        t = time.monotonic()
+        fn(*args)
+        return time.monotonic() - t
+
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    # one nvcc a kernel source and g++ for the host runtime, all started together
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        host = pool.submit(timed, native.load_library)
         list(pool.map(cuda_build.load_kernel_library, KERNELS))
+        host_s = host.result()
     build_s = time.monotonic() - t0
     ptxas = [ln.strip() for name in KERNELS
              for ln in cuda_build.build_log(name).splitlines() if "registers" in ln]
     log(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} | {smi} | kernels built in {build_s:.1f} s; "
-        f"ptxas: {' / '.join(ptxas) or 'cached build'}")
+        f"device {torch.cuda.get_device_name(0)} | {smi} | kernels and the native runtime "
+        f"built in {build_s:.1f} s (g++ {cuda_build.build_host_library()[0].name}: "
+        f"{host_s:.1f} s); ptxas: {' / '.join(ptxas) or 'cached build'}")
     return smi
 
 
@@ -948,7 +983,8 @@ def _torch_syncs(tally: dict, key: str, sites: Counter = None):
     found = []
 
     def _seen(message, *args, **kwargs):
-        if "synchroniz" in str(message):
+        # torch's one-time notice that the mode is a prototype names no sync
+        if "synchroniz" in str(message) and "prototype" not in str(message):
             found.append(_call_site())
 
     def counted_wait(event):
@@ -1171,7 +1207,7 @@ def rooms_world(dev, spec, floor_points):
 
 
 def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=None,
-               snapshot_at=None):
+               snapshot_at=None, twist_mux=None):
     """The loop of bench_suite.py::bench_active_slam through the port's
     ActiveSlamSystem: a stereo frame and its frustum cloud every step, a
     tick every ACTIVE_TICK_EVERY steps (then the FI oracle's value at the
@@ -1180,7 +1216,11 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
     synchronizes and is counted: host seconds, the engine's and torch's
     host syncs (with torch's call sites), and kernel launches. After
     ``snapshot_at`` frames the coverage, goals, FI rejections and keyframes
-    are noted (outside the windows) as ``r["snapshot"]``.
+    are noted (outside the windows) as ``r["snapshot"]``. With the EKF on
+    (``cfg.localization.enabled``), a fourth window each step reads the
+    EKF's estimate after the controller step (its flush), as
+    tests/test_ekf_integration.py does: the estimates and the robot's true
+    poses are returned as ``r["ekf"]`` and ``r["truth"]``.
 
     The system's scheduling clock is a ``SimClock`` that reads the
     simulation's time, a controller step of 0.15 s a frame, not the host's:
@@ -1202,7 +1242,8 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
     K = Intrinsics.from_config(cfg.camera, dev)
     robot = sim.DiffDriveRobot(x=start[0], y=start[1], yaw=start[2], v_max=0.8, w_max=1.0)
     box = {}
-    nav = SimNavInterface(cfg, spec, robot, lambda: box["sys"].occupancy(), dt=dt, device=dev)
+    nav = SimNavInterface(cfg, spec, robot, lambda: box["sys"].occupancy(), dt=dt,
+                          twist_mux=twist_mux, device=dev)
     nav.controller.max_omega = max_omega
     system = ActiveSlamSystem(cfg, spec, nav, device=dev, event_logger=clock,
                               get_robot_pose=lambda: box["sys"].estimated_robot_pose())
@@ -1212,10 +1253,10 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
         return (system.slam.host_syncs + nav.host_syncs + system.explorer.host_syncs
                 + system.host_syncs)
 
-    r = {f"{w}_{k}": 0 for w in ("frame", "tick", "ctrl")
+    r = {f"{w}_{k}": 0 for w in WINDOWS
          for k in ("n", "s", "syncs", "torch_syncs", "describe", "top2", "sweep")}
-    r.update({f"{w}_sites": Counter() for w in ("frame", "tick", "ctrl")})
-    cams, fi_values = [], []
+    r.update({f"{w}_sites": Counter() for w in WINDOWS})
+    cams, fi_values, infos, ekf, truth = [], [], [], [], []
     _reset_counts()
     for step in range(n_frames):
         z = 0.8 if surface_z is None else surface_z(robot.x, robot.y) + 0.8
@@ -1228,10 +1269,13 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
         cloud, cvalid = synthetic.frustum_cloud(K, landmarks, cam,
                                                 max_points=cfg.traversability.max_points_per_cloud,
                                                 max_depth=8.0, width=W, height=H)
-        windows = [("frame", lambda: system.process_frame(left, right, cloud, cvalid))]
+        windows = [("frame", lambda: infos.append(
+            system.process_frame(left, right, cloud, cvalid)))]
         if step % ACTIVE_TICK_EVERY == ACTIVE_TICK_EVERY - 1:
             windows.append(("tick", system.tick_exploration))
         windows.append(("ctrl", nav.step))
+        if system.ekf is not None:
+            windows.append(("pose", lambda: ekf.append(system.estimated_robot_pose())))
         for w, fn in windows:
             torch.cuda.synchronize()
             before, launches, t0 = engine_syncs(), _counts(), time.perf_counter()
@@ -1246,6 +1290,7 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
                     r[f"{w}_{k}"] += v - launches[k]
             if w == "tick":
                 fi_values.append(system.fisher_information_of_pose(robot.xy, robot.yaw))
+        truth.append((robot.x, robot.y, robot.yaw))
         clock.sim_s += dt
         if step + 1 == snapshot_at:
             d = system.explorer.diag
@@ -1260,7 +1305,8 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
     gt = list(lie.SE3(Rs, ts).matrix().cpu().numpy().astype(np.float64))
     occ = system.occupancy().cpu().numpy()
     traj = np.array([(x, y) for x, y, _ in robot.trajectory])
-    r.update(system=system, robot=robot, nav=nav, gt=gt, occ=occ, fi=fi_values,
+    r.update(system=system, robot=robot, nav=nav, gt=gt, occ=occ, fi=fi_values, infos=infos,
+             ekf=ekf, truth=np.array(truth),
              launches=launches, n_kf=int(system.slam.map.n_kf),
              extent=float(np.ptp(traj[:, 0]) + np.ptp(traj[:, 1])), traj=traj,
              ate=_ate_world(system.slam.trajectory, gt))
@@ -1297,7 +1343,7 @@ def _check_windows(r, what):
     torch's counts of host syncs equal in every window."""
     if min(r["launches"][k] for k in ("describe", "top2", "sweep")) <= 0:
         raise AssertionError(f"{what}: a kernel of the path was not launched: {r['launches']}")
-    for w in ("frame", "tick", "ctrl"):
+    for w in WINDOWS:
         if r[f"{w}_syncs"] != r[f"{w}_torch_syncs"]:
             raise AssertionError(f"{what}: host syncs differ in the {w} window: engine "
                                  f"{r[w + '_syncs']}, torch {r[w + '_torch_syncs']} at "
@@ -1430,7 +1476,7 @@ def phase_active(dev):
     if not (same and occ_equal):
         raise AssertionError(f"[8 active] fused grid: card runs identical {same}, occupancy "
                              f"equal to the CPU's {occ_equal}")
-    return r["launches"]
+    return r
 
 
 def phase_marsyard(dev):
@@ -1988,6 +2034,248 @@ def phase_ba(dev, loop_run):
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-12: recorded datasets through the native runtime, and the EKF
+# ---------------------------------------------------------------------------
+
+
+def tum_config():
+    """tests/test_dataset_external.py's configuration, unchanged:
+    relocalization on, loop closing off."""
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    cfg = FitSlamConfig()
+    R = dataclasses.replace
+    return R(cfg,
+             camera=R(cfg.camera, width=320, height=240, fx=200.0, fy=200.0, cx=160.0,
+                      cy=120.0, baseline=0.2, rgbd=True, depth_max=14.0),
+             orb=R(cfg.orb, num_features=512, num_levels=3, fast_threshold=10.0),
+             tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
+                        keyframe_translation=0.3),
+             mapping=R(cfg.mapping, max_keyframes=64, max_landmarks=4096,
+                       max_observations=12288, local_window=4, ba_iters=3),
+             loop=R(cfg.loop, enabled=False))
+
+
+def phase_dataset(dev):
+    """The golden corridor_seq through the port's native reader (byte-equal
+    to read_pgm, and the reader's own frames/s), ``run_dataset.replay`` in
+    this process (the path's launches) and ``python -m
+    fitslam_tpu_torch.run_dataset`` as a subprocess on the card (exit 0,
+    ATE within the golden bound, an events.csv of more than 10 rows), then
+    the committed indoor_tum through TumRgbdSequence and process_rgbd_frame
+    held to tests/test_dataset_external.py's bounds. Returns the launches of
+    the replay and of the indoor_tum run."""
+    import re
+
+    from fitslam_tpu_torch import run_dataset
+    from fitslam_tpu_torch.data import tum
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.runtime.native import PgmSequenceReader
+    from fitslam_tpu_torch.utils import evaluation as ev
+
+    t_phase = time.monotonic()
+    seq = run_dataset.DEFAULT_SEQUENCE
+    read_s, n_read = 0.0, 0
+    for eye in ("left", "right"):
+        files = sorted((seq / eye).glob("*.pgm"))
+        reader = PgmSequenceReader(seq / eye, prefetch=8)
+        t0 = time.perf_counter()
+        got = list(reader)
+        read_s += time.perf_counter() - t0
+        reader.close()
+        n_read += len(got)
+        if len(got) != len(files) or not all(np.array_equal(g, tum.read_pgm(f))
+                                              for g, f in zip(got, files)):
+            raise AssertionError(f"[11 dataset] the native reader's {eye} frames differ from "
+                                 f"read_pgm's")
+    # in process: the path's launches and host syncs
+    _reset_counts()
+    rep = run_dataset.replay(seq, run_dataset.dataset_config(), device=dev)
+    n_ds = _counts()
+    # the entry point a user runs, on the card by default
+    (seq / "events.csv").unlink(missing_ok=True)
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "fitslam_tpu_torch.run_dataset"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    sub_s = time.monotonic() - t0
+    m = re.search(r"ATE RMSE = ([0-9.]+) cm", proc.stdout)
+    fps = re.search(r"throughput = ([0-9.]+) frames/s", proc.stdout)
+    rows = (seq / "events.csv").read_text().strip().splitlines() if (seq / "events.csv").exists() \
+        else []
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"[11 dataset] run_dataset exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    sub_ate = float(m.group(1)) / 100
+    # indoor_tum through the RGB-D step
+    cfg = tum_config()
+    frames = [(torch.from_numpy(f.gray).to(dev), torch.from_numpy(f.depth).to(dev), f.T_wc)
+              for f in tum.TumRgbdSequence(ROOT / "tests" / "data" / "indoor_tum")]
+    slam = StereoSlam(cfg, dev)
+    relocalized = lost = 0
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for gray, depth, _ in frames:
+        info = slam.process_rgbd_frame(gray, depth)
+        relocalized += bool(info.get("relocalized"))
+        lost += bool(info["lost"])
+    torch.cuda.synchronize()
+    tum_s = time.perf_counter() - t0
+    n_tum = _counts()
+    ate = ev.ate_rmse(slam.trajectory, [T for _, _, T in frames])
+    n_kf, nf = int(slam.map.n_kf), len(frames)
+    log(f"[11 dataset] native reader: corridor_seq's {n_read} frames byte-equal to read_pgm, "
+        f"{n_read / read_s:.1f} frames/s read alone (prefetch 8); replay in process "
+        f"(run_dataset.replay, 320x240): {rep['frames']} frames, {rep['fps']:.2f} frames/s, ATE "
+        f"{rep['ate']:.4f} m, {rep['keyframes']} keyframes, {rep['host_syncs'] / rep['frames']:.2f}"
+        f" host syncs a frame, K1 {n_ds['describe'] / rep['frames']:.2f} / K2 "
+        f"{n_ds['top2'] / rep['frames']:.2f} launches a frame; python -m "
+        f"fitslam_tpu_torch.run_dataset: exit {proc.returncode}, ATE {sub_ate:.4f} m, "
+        f"{fps.group(1) if fps else '?'} frames/s, events.csv {len(rows) - 1} spans, "
+        f"{sub_s:.1f} s with the interpreter's start; indoor_tum ({nf} RGB-D frames, "
+        f"relocalization on): ATE {ate:.4f} m, {n_kf} keyframes (reference golden 0.063 m, 18 "
+        f"keyframes), {nf / tum_s:.2f} frames/s, {slam.host_syncs / nf:.2f} host syncs a frame, "
+        f"K1 {n_tum['describe'] / nf:.2f} / K2 {n_tum['top2'] / nf:.2f} launches a frame, {lost} "
+        f"frames lost, {relocalized} relocalized; phase {time.monotonic() - t_phase:.1f} s")
+    if not (rep["ate"] <= ATE_BOUND_M and sub_ate <= ATE_BOUND_M and len(rows) > 10):
+        raise AssertionError(f"[11 dataset] replay ATE {rep['ate']} / {sub_ate} m (bound "
+                             f"{ATE_BOUND_M}), {len(rows)} rows in events.csv")
+    if n_ds["describe"] != 2 * rep["frames"] or n_ds["top2"] <= 0:
+        raise AssertionError(f"[11 dataset] kernel launches {n_ds}")
+    if not (ate <= TUM_ATE_BOUND_M and TUM_KF_RANGE[0] <= n_kf <= TUM_KF_RANGE[1]):
+        raise AssertionError(f"[11 dataset] indoor_tum ATE {ate} m, {n_kf} keyframes: outside "
+                             f"tests/test_dataset_external.py's bounds")
+    if n_tum["describe"] != nf or n_tum["top2"] <= 0:
+        raise AssertionError(f"[11 dataset] indoor_tum kernel launches {n_tum}")
+    return n_ds, n_tum
+
+
+def ekf_config():
+    """Phase 8's active cell with the EKF layer on."""
+    cfg = active_config(640, 480, 1024, 4, fx=0.625 * 640)
+    return dataclasses.replace(cfg, localization=dataclasses.replace(cfg.localization,
+                                                                     enabled=True))
+
+
+def ekf_flush_cost(dev):
+    """(device ms, kernel launches, host wall ms) of one flush of a frame's
+    rows (odometry and IMU rates for both filters, a SLAM pose for the map
+    filter): two windows of WINDOW_CAP rows."""
+    from fitslam_tpu_torch.models.localization import DualEkf
+
+    dual = DualEkf(device=dev)
+
+    def one_flush():
+        dual.add_odom(0.5, 0.0, 0.15)
+        dual.add_imu(0.0, 0.0, 0.1, 0.0, gate=0.8)
+        dual.add_pose(0.0, 0.0, 0.0, gate=3.0)
+        dual.flush()
+
+    # a flush is ~10^4 launches: a profiler window of a few flushes suffices,
+    # and a longer one takes the profiler tens of seconds to digest
+    dev_ms, launches = kernel_sum(one_flush, reps=2)
+    return dev_ms, launches, cuda_time_ms(one_flush, reps=5, warmup=1)[1]
+
+
+def ekf_dropout(dev, cfg, spec, landmarks):
+    """tests/test_ekf_integration.py's dropout at full width: 12 frames
+    driving straight, then 15 controller steps with no frame. Returns (error
+    before, error after, distance the estimate moved)."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.models import sim_robot as sim
+    from fitslam_tpu_torch.models.active_slam import ActiveSlamSystem, camera_pose_from_robot
+    from fitslam_tpu_torch.models.localization import TwistMux
+    from fitslam_tpu_torch.models.sim_nav import SimNavInterface
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+
+    W, H = cfg.camera.width, cfg.camera.height
+    K = Intrinsics.from_config(cfg.camera, dev)
+    robot = sim.DiffDriveRobot(x=-5.0, y=-5.0, yaw=0.2, v_max=0.8, w_max=1.0)
+    box = {}
+    nav = SimNavInterface(cfg, spec, robot, lambda: box["s"].occupancy(), dt=0.15,
+                          twist_mux=TwistMux(), device=dev)
+    system = ActiveSlamSystem(cfg, spec, nav, device=dev,
+                              get_robot_pose=lambda: box["s"].estimated_robot_pose())
+    box["s"] = system
+    for step in range(12):
+        cam = camera_pose_from_robot(robot.x, robot.y, robot.yaw, device=dev)
+        if step == 0:
+            system.set_world_anchor(cam)
+        left, right = synthetic.render_stereo(K, landmarks, cam, width=W, height=H,
+                                              max_depth=12.0)
+        system.process_frame(left, right)
+        nav.drive_open_loop(0.5, 0.0)
+    xy0, _ = system.estimated_robot_pose()
+    err0 = float(np.linalg.norm(xy0 - robot.xy))
+    for _ in range(15):
+        nav.drive_open_loop(0.5, 0.05)
+    xy1, _ = system.estimated_robot_pose()
+    return err0, float(np.linalg.norm(xy1 - robot.xy)), float(np.linalg.norm(xy1 - xy0))
+
+
+def phase_ekf(dev, active):
+    """Phase 8's active cell (bench_active_slam at full width, ACTIVE_BENCH_FRAMES
+    frames) with the EKF on, the robot's pose read from its estimate and the
+    nav layer's twists through a TwistMux, twice (the two EKF trajectories
+    bit-equal), held to tests/test_ekf_integration.py's bounds and the
+    active e2e bounds that apply at frame 80; then the dropout sub-run. Host
+    ms a frame / tick / controller step stand beside phase 8's run of this
+    call (``active``). Returns the first run's launches."""
+    from fitslam_tpu_torch.models.localization import TwistMux
+    from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+
+    t_phase = time.monotonic()
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    cfg = ekf_config()
+    world = rooms_world(dev, spec, floor_points=4000)
+    runs = [run_active(dev, cfg, spec, world.landmarks, (-5.0, -5.0, 0.3), ACTIVE_BENCH_FRAMES,
+                       max_omega=1.0, twist_mux=TwistMux()) for _ in range(2)]
+    r, system = runs[0], runs[0]["system"]
+    est = [np.array([xy[0], xy[1], yaw]) for xy, yaw in r["ekf"]]
+    same = all(np.array_equal(a, np.array([xy[0], xy[1], yaw]))
+               for a, (xy, yaw) in zip(est, runs[1]["ekf"])) and \
+        torch.equal(system.ekf.map_state.P, runs[1]["system"].ekf.map_state.P)
+    est = np.array(est)
+    errs = np.linalg.norm(est[:, :2] - r["truth"][:, :2], axis=1)
+    dyaw = abs((est[-1, 2] - r["truth"][-1, 2] + math.pi) % (2 * math.pi) - math.pi)
+    err0, err1, moved = ekf_dropout(dev, cfg, spec, world.landmarks)
+    flush_ms, flush_n, flush_wall = ekf_flush_cost(dev)
+    known = r["occ"] != gr.UNKNOWN
+    d = system.explorer.diag
+    ekf = system.ekf
+    reloc = sum(bool(i.get("relocalized")) for i in r["infos"])
+    lost = sum(bool(i.get("lost")) for i in r["infos"])
+    a = active
+    log(f"[12 ekf] phase 8's cell with the EKF on ({cfg.camera.width}x{cfg.camera.height}, "
+        f"{ACTIVE_BENCH_FRAMES} frames, TwistMux, the robot's pose from the EKF): mean EKF pose "
+        f"error from frame 5 {errs[5:].mean():.4f} m (max {errs.max():.4f}), final yaw error "
+        f"{dyaw:.4f} rad; {r['n_kf']} keyframes, ATE {r['ate']:.4f} m, coverage "
+        f"{known.mean():.4f}, {d.goals_sent} goals; two runs' EKF trajectories bit-equal "
+        f"{same}; dropout (12 frames, 15 steps without): error {err0:.4f} -> {err1:.4f} m, the "
+        f"estimate moved {moved:.3f} m; {ekf.flushes} flushes ({ekf.flushes / r['ctrl_n']:.2f} a "
+        f"controller step, {ekf.windows} windows of {ekf.WINDOW_CAP} rows), one flush of a frame's "
+        f"rows (2 filters x {ekf.WINDOW_CAP} rows): {flush_n:.0f} kernel launches, "
+        f"{flush_ms * 1e3:.1f} us device, {flush_wall:.2f} ms host wall; estimate read a frame "
+        f"{_per(r, 'pose', 's') * 1e3:.2f} ms host, {_per(r, 'pose', 'syncs'):.3f} host syncs; "
+        f"{lost} frames lost, {reloc} relocalized; {_window_line(r)}; phase 8 in this call "
+        f"(EKF off): host ms a frame {_per(a, 'frame', 's') * 1e3:.1f}, a tick "
+        f"{_per(a, 'tick', 's') * 1e3:.1f}, a controller step {_per(a, 'ctrl', 's') * 1e3:.2f}, "
+        f"host syncs a controller step {_per(a, 'ctrl', 'syncs'):.3f}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    _check_windows(r, "[12 ekf]")
+    if not same:
+        raise AssertionError("[12 ekf] two runs gave different EKF trajectories")
+    if not (errs[5:].mean() < 0.30 and dyaw < 0.3):
+        raise AssertionError("[12 ekf] misses tests/test_ekf_integration.py's tracking bounds")
+    if not (err1 < err0 + 0.35 and moved > 0.5):
+        raise AssertionError("[12 ekf] misses tests/test_ekf_integration.py's dropout bounds")
+    if not (r["n_kf"] >= 5 and r["ate"] < 0.5 and d.goals_sent >= 1):
+        raise AssertionError("[12 ekf] misses tests/test_active_slam_e2e.py's bounds at frame 80")
+    return r["launches"]
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -2101,13 +2389,16 @@ def main() -> int:
     phase_golden(dev)
     n = phase_bench(dev)
     k3 = phase_k3(dev)
-    paths = {"bench": n, "explore": phase_explore(dev), "active": phase_active(dev),
-             "marsyard": phase_marsyard(dev), "rgbd": phase_rgbd(dev)}
+    paths = {"bench": n, "explore": phase_explore(dev)}
+    active = phase_active(dev)
+    paths.update(active=active["launches"], marsyard=phase_marsyard(dev), rgbd=phase_rgbd(dev))
     loop = phase_loop(dev)
     paths["loop"] = loop["launches"]
     k2.update(phase_k2_verify(dev))
     phase_atlas(dev)
     phase_ba(dev, loop)
+    paths["dataset"], paths["tum"] = phase_dataset(dev)
+    paths["ekf"] = phase_ekf(dev, active)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just

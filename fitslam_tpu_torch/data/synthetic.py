@@ -36,6 +36,9 @@ from fitslam_tpu_torch.ops.geometry import Intrinsics, project_stereo
 from fitslam_tpu_torch.ops.numerics import fma32, segment_sum_fixed, top_k_stable, true_div
 
 BENCH_WORLD = Path(__file__).resolve().parents[2] / "tests" / "data" / "bench_corridor_world.npz"
+# corridor_world(PRNGKey(0), num=3000, length=30.0, width=5.0): the world the
+# reference's examples/run_dataset.py --record renders (its only seed, 0)
+DATASET_WORLD = Path(__file__).resolve().parents[2] / "tests" / "data" / "dataset_corridor_world.npz"
 # ring_world(PRNGKey(seed), num=5000, radius=8.0, width=5.0) for seeds 1-3,
 # the worlds of bench_suite.py::bench_loop_slam, as "seed_<seed>" arrays
 RING_WORLDS = Path(__file__).resolve().parents[2] / "tests" / "data" / "ring_worlds.npz"

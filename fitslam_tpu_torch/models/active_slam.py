@@ -8,15 +8,19 @@ threshold feeds both navigation and frontier search; the exploration server
 picks goals and the Fisher-information oracle gates motion on localization
 safety — all in one process, with the reference's functional seams.
 
-Frames take the zero-readback path (``StereoSlam.process_frame_async``);
-keyframe events, and with them cloud fusion, arrive at the batched poll of
-the next exploration tick. The system's own reads back (the SLAM pose when
-the explorer asks for the robot's pose, and ``fisher_information_of_pose``'s
-float) are counted in ``host_syncs``; the device oracle's value folds into
-the tick's one packed read.
-
-The EKF layer (``cfg.localization.enabled``) waits for the port of
-``models/localization.py``; asking for it raises.
+Without the EKF layer, frames take the zero-readback path
+(``StereoSlam.process_frame_async``); keyframe events, and with them cloud
+fusion, arrive at the batched poll of the next exploration tick, and the
+engine runs with relocalization off (the asynchronous step never
+relocalizes). With the EKF layer (``cfg.localization.enabled``), frames take
+the synchronous step on an engine built from the unchanged config
+(relocalization as configured), and the dual EKF of
+``models/localization.py`` fuses wheel odometry, IMU and the SLAM pose; its
+map-frame estimate is the robot's pose. The system's own reads back (the
+SLAM pose or the EKF estimate when the explorer asks for the robot's pose,
+the anchor's matrix once, and ``fisher_information_of_pose``'s float) are
+counted in ``host_syncs``, the EKF's flushes among them; the device oracle's
+value folds into the tick's one packed read.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.models import localization as loc
 from fitslam_tpu_torch.models.exploration import ExplorationServer
 from fitslam_tpu_torch.models.slam import StereoSlam
 from fitslam_tpu_torch.ops import fisher, lie
@@ -66,22 +71,34 @@ class ActiveSlamSystem:
         peer_goals=None,          # () -> [peer goal xy] (multi-robot sharing)
         device="cuda",
     ):
-        if cfg.localization.enabled:
-            raise NotImplementedError(
-                "the EKF layer (cfg.localization.enabled) is not ported yet: it waits for "
-                "models/localization.py (ROADMAP queue 1 item 14); set it to False")
         self.cfg = cfg
         self.spec = spec
         self.device = torch.device(device)
         self.log = event_logger or EventLogger(time_tier=MODULE)
-        # frames take the asynchronous step, which never relocalizes (the
-        # reference relocalizes only in its synchronous step), so the engine
-        # runs with relocalization off whatever the config says
-        self.slam = StereoSlam(
-            replace(cfg, tracking=replace(cfg.tracking, reloc_enabled=False)),
-            self.device, event_logger=self.log)
-        self.ekf = None
-        self.host_syncs = 0       # this object's own device->host reads
+        lcfg = cfg.localization
+        # without the EKF, frames take the asynchronous step, which never
+        # relocalizes (the reference relocalizes only in its synchronous
+        # step), so that engine runs with relocalization off whatever the
+        # config says; the EKF's synchronous path keeps the config's setting
+        slam_cfg = cfg if lcfg.enabled else replace(
+            cfg, tracking=replace(cfg.tracking, reloc_enabled=False))
+        self.slam = StereoSlam(slam_cfg, self.device, event_logger=self.log)
+        self._host_syncs = 0      # this object's own device->host reads
+
+        # state-estimation layer (N5, ekf_with_gps.yaml/twist_mux.yaml): the
+        # dual EKF fuses wheel-odometry twist + IMU rates (odom filter) and
+        # the SLAM pose as the absolute map-frame reference (GPS's role);
+        # when enabled its map-frame estimate IS the robot pose source
+        self.ekf: Optional[loc.DualEkf] = None
+        if lcfg.enabled:
+            self.ekf = loc.DualEkf(device=self.device)
+            self._ekf_dirty = False
+            self._slam_fuse_counter = 0
+            # the nav layer's executed twists feed the odometry input
+            # (wheel-encoder seam): SimNavInterface calls on_cmd after every
+            # robot step
+            if hasattr(nav, "on_cmd"):
+                nav.on_cmd = self.observe_odometry
 
         tcfg = cfg.traversability
         self.clouds = gridops.empty_cloud_buffer(tcfg.max_clouds, tcfg.max_points_per_cloud,
@@ -104,6 +121,8 @@ class ActiveSlamSystem:
         # SLAM's frame is anchored at the first camera; the simulation works
         # in a world frame. T_anchor is the first camera's world pose.
         self.T_anchor: Optional[lie.SE3] = None
+        self._anchor_np: Optional[np.ndarray] = None  # host mirror of T_anchor
+        self._ekf_pose_cache = None  # (xy, yaw) until the next EKF input
 
         self.explorer = ExplorationServer(
             cfg, spec,
@@ -126,6 +145,13 @@ class ActiveSlamSystem:
     def set_world_anchor(self, T_wc_first: lie.SE3):
         """Register the first camera's world pose (sim/GT or external init)."""
         self.T_anchor = T_wc_first
+        self._anchor_np = None
+
+    @property
+    def host_syncs(self) -> int:
+        """Device->host reads of this object and its EKF (not the engine's,
+        the explorer's or the nav layer's)."""
+        return self._host_syncs + (self.ekf.host_syncs if self.ekf is not None else 0)
 
     def kf_poses_world(self):
         """Keyframe camera-from-world poses expressed in the world frame."""
@@ -134,36 +160,94 @@ class ActiveSlamSystem:
             return m.kf_T_cw, m.n_kf
         return lie.compose(m.kf_T_cw, lie.inverse(self.T_anchor)), m.n_kf
 
-    def _slam_pose_world(self) -> Tuple[np.ndarray, float]:
-        """Raw SLAM pose in the world frame (xy, yaw): one counted read. (The
-        reference's host-math variant on a frame's pose matrix serves only
-        the EKF's sync frame path.)"""
+    def _slam_pose_world(self, pose_wc_np=None) -> Tuple[np.ndarray, float]:
+        """Raw SLAM pose in the world frame (xy, yaw).
+
+        When the caller already holds the frame's pose matrix (numpy, from
+        the synchronous step's packed read), the anchor composition is host
+        math on the anchor's matrix, read once; otherwise one counted read."""
+        if pose_wc_np is not None:
+            T_np = np.asarray(pose_wc_np, np.float64)
+            if self.T_anchor is not None:
+                if self._anchor_np is None:
+                    self._anchor_np = self.T_anchor.matrix().cpu().numpy().astype(np.float64)
+                    self._host_syncs += 1
+                T_np = self._anchor_np @ T_np
+            fwd = T_np[:3, 2]
+            return T_np[:2, 3], math.atan2(fwd[1], fwd[0])
         T = self.slam.current_pose_wc  # slam frame
         if self.T_anchor is not None:
             T = lie.compose(self.T_anchor, T)
         v = torch.cat([T.R[:, 2], T.t]).cpu().numpy()
-        self.host_syncs += 1
+        self._host_syncs += 1
         yaw = math.atan2(float(v[1]), float(v[0]))  # camera +z (forward)
         return v[3:5].astype(np.float64), yaw
 
     def estimated_robot_pose(self) -> Tuple[np.ndarray, float]:
-        """Robot pose in the world frame (xy, yaw): raw SLAM (the EKF
-        estimate once ``models/localization.py`` is ported)."""
-        return self._slam_pose_world()
+        """Robot pose in the world frame (xy, yaw): the EKF map-frame
+        estimate when the localization layer is enabled, else raw SLAM. The
+        EKF flushes its pending rows only when an input arrived since the
+        last call, and the pose it reads back is kept until the next input:
+        one read an EKF update, not one a query."""
+        if self.ekf is None:
+            return self._slam_pose_world()
+        if self._ekf_dirty:
+            _, m = self.ekf.flush()   # its one read, counted by the EKF
+            self._ekf_dirty = False
+            self._ekf_pose_cache = (m[[loc.X, loc.Y]].astype(np.float64), float(m[loc.YAW]))
+        if self._ekf_pose_cache is None:
+            x = self.ekf.map_state.x[:loc.YAW + 1].cpu().numpy()
+            self._host_syncs += 1
+            self._ekf_pose_cache = (x[[loc.X, loc.Y]].astype(np.float64), float(x[loc.YAW]))
+        return self._ekf_pose_cache
 
     # ------------------------------------------------------------------
-    # State-estimation inputs (N5): no-ops until the EKF is ported
+    # State-estimation inputs (N5)
     # ------------------------------------------------------------------
 
     def observe_odometry(self, v: float, omega: float, dt: float):
-        """Wheel-odometry twist + gyro rate into the EKF filters."""
+        """Wheel-odometry twist + gyro rate into both EKF filters (the
+        odom0/imu0 topics of ekf_with_gps.yaml). Called by the nav layer
+        after every executed command when the EKF is enabled."""
         if self.ekf is None or dt <= 0:
             return
+        lcfg = self.cfg.localization
+        self.ekf.add_odom(v, 0.0, dt, var=lcfg.odom_var)
+        self.ekf.add_imu(0.0, 0.0, omega, 0.0, var=lcfg.imu_rate_var,
+                         gate=lcfg.imu_gate)
+        self._ekf_dirty = True
+        self._ekf_pose_cache = None
 
     def observe_imu_orientation(self, roll: float, pitch: float, yaw: float):
         """Absolute AHRS orientation (the imu0_config orientation rows)."""
         if self.ekf is None:
             return
+        lcfg = self.cfg.localization
+        self.ekf.add_imu(0.0, 0.0, 0.0, 0.0, roll=roll, pitch=pitch, yaw=yaw,
+                         var=lcfg.imu_rate_var, ori_var=lcfg.imu_ori_var,
+                         gate=lcfg.imu_gate)
+        self._ekf_dirty = True
+        self._ekf_pose_cache = None
+
+    def _fuse_slam_pose(self, pose_wc_np=None):
+        lcfg = self.cfg.localization
+        xy, yaw = self._slam_pose_world(pose_wc_np)
+        if self._slam_fuse_counter == 0:
+            # first fix: seed both filters at the SLAM pose (datum), exactly
+            # as navsat_transform seeds the map frame from the first GPS fix
+            x0 = np.zeros(loc.STATE_DIM, np.float32)
+            x0[[loc.X, loc.Y, loc.YAW]] = [xy[0], xy[1], yaw]
+            self.ekf.odom_state = loc.initial_state(x0, device=self.device)
+            self.ekf.map_state = loc.initial_state(x0, device=self.device)
+            self._slam_fuse_counter += 1
+            return
+        self._slam_fuse_counter += 1
+        if (self._slam_fuse_counter - 1) % max(1, lcfg.fuse_every_n_frames):
+            return
+        self.ekf.add_pose(float(xy[0]), float(xy[1]), yaw,
+                          var=lcfg.slam_pose_var, gate=lcfg.slam_pose_gate)
+        self._ekf_dirty = True
+        self._ekf_pose_cache = None
 
     # ------------------------------------------------------------------
     # SLAM + mapping
@@ -172,14 +256,27 @@ class ActiveSlamSystem:
     def process_frame(self, img_left, img_right,
                       cloud_c: Optional[torch.Tensor] = None,
                       cloud_valid: Optional[torch.Tensor] = None) -> Dict:
-        """Track one stereo frame on the zero-readback path; `cloud_c` is the
-        camera-frame point cloud to associate with a keyframe if one is
-        created this frame (keyframe events are consumed by the batched poll
-        at the next exploration tick)."""
+        """Track one stereo frame; `cloud_c` is the camera-frame point cloud
+        to associate with a keyframe if one is created this frame.
+
+        Without the EKF layer, frames take the zero-readback path: keyframe
+        events are consumed by the batched poll at the next exploration
+        tick. With it, the synchronous step runs (one packed read a frame),
+        and the map-frame filter fuses the SLAM pose at frame rate."""
         if cloud_c is not None:
             self._pending_cloud[self.slam.frame_id] = (cloud_c, cloud_valid)
-        self.slam.process_frame_async(img_left, img_right)
-        return {"async": True}
+        if self.ekf is None:
+            self.slam.process_frame_async(img_left, img_right)
+            return {"async": True}
+        info = self.slam.process_frame(img_left, img_right)
+        if info.get("loop"):
+            # loop closure moved keyframes: re-stitch the grid
+            self._restitch = True
+        if not info.get("lost"):
+            # fuse the SLAM pose into the map-frame filter; when tracking is
+            # lost the EKF dead-reckons on odometry alone
+            self._fuse_slam_pose(info.get("pose_wc"))
+        return info
 
     def _on_keyframe(self, slam: StereoSlam, kf_idx: int):
         entry = self._pending_cloud.pop(slam.last_keyframe_frame_id, None)
@@ -265,7 +362,7 @@ class ActiveSlamSystem:
                                    exhaustive: bool = False) -> float:
         """The same scalar read back (one counted read)."""
         v = float(self.fisher_information_of_pose_device(robot_xy, robot_yaw, exhaustive))
-        self.host_syncs += 1
+        self._host_syncs += 1
         return v
 
     def landmark_map_world(self):

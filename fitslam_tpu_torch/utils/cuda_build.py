@@ -1,11 +1,15 @@
-"""Build and load the port's CUDA kernels (``fitslam_tpu_torch/csrc/*.cu``).
+"""Build and load the port's native libraries: the CUDA kernels
+(``fitslam_tpu_torch/csrc/*.cu``) and the host runtime (``csrc/runtime.cc``).
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, at first use, under ``build/kernels/`` at
-the repository root (git-ignored). The library name carries a hash of the
-source and the flags, so an edited kernel is rebuilt and a stale one is never
-loaded. Libraries are loaded with ``ctypes``; the wrappers in ``ops/`` pass
-raw device pointers and PyTorch's current stream.
+Each kernel source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, at first use, under
+``build/kernels/`` at the repository root (git-ignored); the host runtime is
+compiled by ``g++`` with the flags of the reference's ``native/Makefile``
+into ``build/native/``. A library's name carries a hash of its source and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded. Libraries are loaded with ``ctypes``; the kernel wrappers in ``ops/``
+pass raw device pointers and PyTorch's current stream. A failed build raises
+with the compiler's output: nothing falls back.
 
 Nothing here runs at import time: this module is imported on machines that
 have neither ``nvcc`` nor a GPU.
@@ -23,6 +27,7 @@ from typing import Dict, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NATIVE_BUILD_DIR = BUILD_DIR.parent / "native"
 
 # --fmad=false: K2's window gate forms dx*dx + dy*dy without a fused
 # multiply-add, as the reference does (the gate also uses __fmul_rn /
@@ -32,6 +37,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
 
@@ -46,27 +53,46 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+def _library_path(src: Path, flags, out_dir: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return out_dir / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def _build(compiler: str, flags, src: Path, out_dir: Path) -> Tuple[Path, str]:
+    """Compile ``src`` unless its hashed library exists. Returns (library
+    path, the compiler's output; empty when nothing was built)."""
+    out = _library_path(src, flags, out_dir)
+    if out.exists():
+        return out, ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(compiler).name} failed for {src.name}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: concurrent builders never see a partial file
+    return out, proc.stdout + proc.stderr
 
 
 def build_kernel_library(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists.
     Returns (library path, nvcc's output; empty when nothing was built)."""
-    out = _library_path(name)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see a partial file
-    return out, proc.stdout + proc.stderr
+    return _build(nvcc_path(), NVCC_FLAGS, CSRC_DIR / f"{name}.cu", BUILD_DIR)
+
+
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the native host runtime needs a C++ compiler")
+
+
+def build_host_library(src: Path = CSRC_DIR / "runtime.cc") -> Tuple[Path, str]:
+    """Compile the host runtime with g++ into ``build/native/`` unless its
+    hashed library exists. Returns (library path, g++'s output)."""
+    return _build(gxx_path(), GXX_FLAGS, src, NATIVE_BUILD_DIR)
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:

@@ -327,3 +327,32 @@ def test_bundle_adjust_repeats_and_matches_cpu(cuda):
     assert torch.equal(a.points, b.points)
     np.testing.assert_allclose(a.T_cw.t.cpu().numpy(), c.T_cw.t.numpy(), atol=1e-4)
     np.testing.assert_allclose(a.points.cpu().numpy(), c.points.numpy(), atol=1e-3)
+
+
+def test_dual_ekf_on_the_card_matches_cpu(cuda):
+    """DualEkf on the card against its CPU run on the same rows (two flushes
+    of more than one window each): x within 1e-5. Two runs on the card are
+    bit-equal (the filter has no atomics)."""
+    from fitslam_tpu_torch.models import localization as loc
+
+    def run(d):
+        rng = np.random.default_rng(21)
+        dual = loc.DualEkf(device=d)
+        out = []
+        for _ in range(2):
+            for k in range(40):
+                v, w = 0.5 + 0.05 * rng.normal(), 0.3 + 0.05 * rng.normal()
+                dual.add_odom(v, 0.0, 0.15)
+                dual.add_imu(0.0, 0.0, w, 0.0, gate=0.8)
+                if k % 2 == 0:
+                    dual.add_pose(0.07 * k, 0.02 * k, 0.045 * k, gate=3.0)
+            out.append(np.concatenate(dual.flush()))
+        assert dual.windows == 8 and dual.host_syncs == 2
+        return np.stack(out), dual.map_state.x.cpu().numpy()
+
+    card, card_x = run(cuda)
+    again, again_x = run(cuda)
+    cpu, cpu_x = run(torch.device("cpu"))
+    assert np.array_equal(card, again) and np.array_equal(card_x, again_x)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(card_x, cpu_x, rtol=0, atol=1e-5)

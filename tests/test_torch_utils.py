@@ -172,7 +172,13 @@ def test_event_logger_keeps_tiers_up_to_its_own():
                                    "ops.grid:empty_cloud_buffer",
                                    "ops.grid:empty_cell_stats",
                                    "ops.fisher:generate_lookup_table",
-                                   "ops.fisher:load_lookup_table"])
+                                   "ops.fisher:load_lookup_table",
+                                   "models.localization:DualEkf",
+                                   "models.localization:initial_state",
+                                   "models.localization:default_process_noise",
+                                   "models.localization:pack_rows",
+                                   "run_dataset:replay",
+                                   "run_dataset:record_sequence"])
 def test_entry_points_default_to_cuda(entry):
     """The port's entry points and the state they build run on the card
     unless the caller passes device="cpu" (read from the signature, so no
@@ -198,13 +204,42 @@ def test_localization_config_and_active_slam_preset_equal_reference():
     assert port.fisher_information.enabled and not port.localization.enabled
 
 
-def test_active_slam_raises_for_the_ekf_layer():
+def test_active_slam_builds_with_the_ekf_layer():
+    """With cfg.localization.enabled the system builds on the CPU with its
+    dual EKF on the same device, and wires the nav layer's executed twists
+    into the odometry input."""
     from fitslam_tpu_torch.models.active_slam import ActiveSlamSystem
+    from fitslam_tpu_torch.models.localization import DualEkf
     from fitslam_tpu_torch.ops.grid import GridSpec2D
+
+    class Nav:
+        on_cmd = None
 
     cfg = tcfg.FitSlamConfig.preset("active_slam")
     cfg = dataclasses.replace(cfg, localization=dataclasses.replace(cfg.localization,
                                                                     enabled=True))
-    with pytest.raises(NotImplementedError, match="localization"):
-        ActiveSlamSystem(cfg, GridSpec2D(16, 0.25, -2.0, -2.0), nav=None,
-                         get_robot_pose=lambda: None, device="cpu")
+    nav = Nav()
+    system = ActiveSlamSystem(cfg, GridSpec2D(16, 0.25, -2.0, -2.0), nav=nav,
+                              get_robot_pose=lambda: None, device="cpu")
+    assert isinstance(system.ekf, DualEkf) and system.ekf.device.type == "cpu"
+    assert nav.on_cmd == system.observe_odometry
+    system.observe_odometry(0.5, 0.1, 0.15)
+    assert len(system.ekf._odom_rows) == 2 and len(system.ekf._map_rows) == 2
+    system.observe_imu_orientation(0.0, 0.0, 0.3)      # a rate row and an orientation row
+    assert len(system.ekf._odom_rows) == 4 and len(system.ekf._map_rows) == 4
+    xy, yaw = system.estimated_robot_pose()            # one flush, one read
+    assert system.ekf.flushes == 1 and system.host_syncs == 1
+    assert system.estimated_robot_pose() == (xy, yaw) and system.host_syncs == 1   # cached
+    assert xy[0] > 0.0 and 0.0 < yaw < 0.3
+
+
+def test_run_dataset_parser_defaults_to_cuda():
+    """python -m fitslam_tpu_torch.run_dataset runs on the card unless --cpu
+    is given."""
+    import torch
+
+    from fitslam_tpu_torch import run_dataset
+
+    parser = run_dataset.build_parser()
+    assert torch.device(run_dataset.device_of(parser.parse_args([]))).type == "cuda"
+    assert run_dataset.device_of(parser.parse_args(["--cpu"])) == "cpu"
