@@ -37,11 +37,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
      exchanging rows every 2, 4 or 8 sweeps, and at ragged shapes through the
      size rule's kernel and the grouped exchanges: exactly equal; all timed
      at the main-path shapes, and at G = 64 the resident kernel as one block;
-  7. (two lines) rapid-mode exploration at full width (the configured 80 m
+  7. (five lines) rapid-mode exploration at full width (the configured 80 m
      global map at 0.25 m, G = 320, FitSlamConfig.preset("rapid")) through
      ExplorationServer.tick() and SimNavInterface.step() for 300 steps, then
-     the G = 64 configuration of bench_suite.py::bench_ablation held to
-     tests/test_exploration_e2e.py's bounds;
+     the G = 64 configuration of bench_suite.py::bench_ablation with each of
+     its three cost methods (arrival info + roadmap, RandomCosts,
+     ClosestFrontier), each held to tests/test_exploration_e2e.py's bounds
+     beside the reference's final coverage, the RandomCosts run's draws
+     bit-equal to the reference's (tests/data/random_costs_draws.npz);
   8. (two lines) the full active-SLAM loop through ActiveSlamSystem
      (bench_suite.py::bench_active_slam: 640x480, 4 levels, 1024 features,
      48 keyframes / 3072 landmarks, 48 clouds of 4096 points, G = 64 at
@@ -75,11 +78,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
      from its estimate, twists through a TwistMux), twice and bit-equal, held
      to tests/test_ekf_integration.py's bounds and the active bounds at frame
      80, then that file's dropout at full width; the cost of a flush (2
-     filters x 64 rows) and the host ms beside phase 8's.
+     filters x 64 rows) and the host ms beside phase 8's;
+ 13. (seven lines) the multi-robot fleet through the port's entry points:
+     ``run_multirobot.run`` (one MultiRobotCoordinator, R wavefronts a
+     tick) for tests/test_allocation.py's two-rover runs (hungarian,
+     minpos) and four rovers (hungarian, and the auction through the
+     config), each with coverage, path lengths, host ms, host syncs and K3
+     launches a tick, the auction's rounds and syncs a solve, and its first
+     10 ticks' cost matrices and assignments equal to the same run's on the
+     CPU; the auction alone on 32 (16, 256) problems within R eps of the
+     Hungarian's optimum; then ``run_multirobot_slam.run_fleet`` (a full
+     ActiveSlamSystem a rover) for 2 and 1 rovers held to
+     tests/test_multirobot_slam.py's bounds, and for 3, with each rover's
+     host ms, K1 / K2 / K3 launches and host syncs a frame and a tick.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
 pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
-gives each path's run: bench, explore, active, marsyard, rgbd, loop,
-dataset, tum, ekf), error, device times
+gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
+loop, dataset, tum, ekf, fleet, fleet_slam), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -156,9 +171,15 @@ PROFILE_WINDOW = (120, 160)  # steps of the G = 320 loop that --profile traces
 # as K3's adds and mins do, issue at no more than half of it)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
-# final coverage of bench_suite.py::bench_ablation's arrival-info + roadmap
-# method at step 299 (ABLATION_COVERAGE.csv), the reference's own run
-REFERENCE_ABLATION_COVERAGE = 0.930
+# bench_suite.py::bench_ablation's three cost methods, and the final
+# coverage of each at step 299 in the reference's own run (the last row of
+# ABLATION_COVERAGE.csv), printed beside the port's and not asserted
+ABLATION_METHODS = {"arrival_info_roadmap": ("ArrivalInformation", "RoadmapPlannerDistance"),
+                    "random": ("RandomCosts",), "closest": ("ClosestFrontier",)}
+REFERENCE_ABLATION_COVERAGE = {"arrival_info_roadmap": 0.9302, "random": 0.9282,
+                               "closest": 0.9302}
+# the reference's RandomCosts draws (jax.random) for ticks 0-150 at F = 64
+RANDOM_COSTS_DRAWS = ROOT / "tests" / "data" / "random_costs_draws.npz"
 # phases 8-9: bench_suite.py's active-SLAM and marsyard runs and the RGB-D arc.
 # The active run goes on past the bench's 80 frames to the 150 of
 # tests/test_active_slam_e2e.py, whose bounds (the robot's extent above all)
@@ -178,6 +199,18 @@ RGBD_FRAMES = 40
 REFERENCE_ACTIVE = {"ate_m": 0.0062, "coverage": 0.398, "goals": 3, "fi_rejections": 0,
                     "keyframes": 31}
 REFERENCE_MARSYARD = {"lethal_precision": 1.0, "violations": 0, "coverage": 0.733, "goals": 10}
+# phase 13: examples/run_multirobot.py's fleet as (allocator, rovers, steps):
+# tests/test_allocation.py's two-rover runs, then four rovers with the
+# Hungarian and the auction (through the config); the first ticks of each
+# also on the CPU, which must give the same cost matrices and assignments
+FLEET_RUNS = (("hungarian", 2, 120), ("minpos", 2, 120), ("hungarian", 4, 150),
+              ("auction", 4, 150))
+FLEET_PARITY_TICKS = 10
+# the auction alone: (R, F) problems against the Hungarian's optimum
+AUCTION_PROBLEMS = 32
+AUCTION_SHAPE = (16, 256)
+# examples/run_multirobot_slam.py's fleet: frames of each run
+FLEET_SLAM_STEPS = 100
 # phase 10: bench_suite.py::bench_loop_slam as bench.py runs it (150 ring
 # frames, the committed worlds of seeds 1-3, a pipelined poll every 4 frames)
 LOOP_FRAMES = 150
@@ -1079,9 +1112,10 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None
     return r
 
 
-def ablation_config():
-    """bench_suite.py::bench_ablation's G = 64 configuration (arrival info +
-    roadmap costs), which is tests/test_exploration_e2e.py's."""
+def ablation_config(methods=ABLATION_METHODS["arrival_info_roadmap"]):
+    """bench_suite.py::bench_ablation's G = 64 configuration with one of its
+    cost methods (by default arrival info + roadmap costs, which is
+    tests/test_exploration_e2e.py's)."""
     from fitslam_tpu_torch.utils.config import FitSlamConfig
 
     cfg = FitSlamConfig()
@@ -1093,10 +1127,28 @@ def ablation_config():
         nav=dataclasses.replace(cfg.nav, wavefront_iters=192, desired_speed=0.8),
         exploration_bt=dataclasses.replace(cfg.exploration_bt, nav2_goal_timeout_s=30.0),
         fisher_information=dataclasses.replace(cfg.fisher_information, enabled=False),
-        cost_assigner=dataclasses.replace(
-            cfg.cost_assigner,
-            cost_calculation_methods=("ArrivalInformation", "RoadmapPlannerDistance")),
+        cost_assigner=dataclasses.replace(cfg.cost_assigner, cost_calculation_methods=methods),
     )
+
+
+@contextmanager
+def _recorded_draws(draws: list):
+    """Keep every RandomCosts draw (tick, values) made inside the block: the
+    tick is the key's low word (``prng_key(ticks)``)."""
+    from fitslam_tpu_torch.utils import prng
+
+    real = prng.uniform
+
+    def uniform(key, shape, minval=0.0, maxval=1.0):
+        out = real(key, shape, minval, maxval)
+        draws.append((int(key[1]), out.copy()))
+        return out
+
+    prng.uniform = uniform
+    try:
+        yield
+    finally:
+        prng.uniform = real
 
 
 def phase_explore(dev, n_steps=EXPLORE_STEPS):
@@ -1151,18 +1203,52 @@ def phase_explore(dev, n_steps=EXPLORE_STEPS):
                              f"{r['ctrl_torch_syncs']} (ticks / controller steps)")
     launches = r["launches"]
 
+    ablation = run_ablation(dev, n_steps)
+    log(f"[7 explore] phase {time.monotonic() - t_phase:.1f} s")
+    return launches, ablation
+
+
+def run_ablation(dev, n_steps=EXPLORE_STEPS):
+    """bench_suite.py::bench_ablation's three cost methods on the G = 64
+    rooms world, each held to tests/test_exploration_e2e.py's coverage
+    bounds and printed beside the reference's own final coverage; the
+    RandomCosts run's draws equal the reference's committed jax.random
+    draws. Returns the kernels' launches over the three runs."""
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+
     small = GridSpec2D(64, 0.25, -8.0, -8.0)
-    a = explore(dev, small, ablation_config(), (-5.0, -5.0), n_steps)
-    acov = a["coverage"]
-    log(f"[7 explore] G=64 bench_ablation config, {a['steps']} steps: final coverage "
-        f"{acov[-1]:.4f} (reference {REFERENCE_ABLATION_COVERAGE} at step 299), "
-        f"{acov[10]:.4f} at step 10, "
-        f"{a['goals']} goals, {a['tick_n'] / a['tick_s']:.2f} ticks/s, "
-        f"{a['ctrl_n'] / a['ctrl_s']:.1f} controller steps/s; phase "
-        f"{time.monotonic() - t_phase:.1f} s")
-    if not (acov[-1] > 0.5 and acov[-1] > acov[10] + 0.2):
-        raise AssertionError(f"G=64 coverage {acov[10]} -> {acov[-1]} misses the bounds")
-    return launches
+    committed = np.load(RANDOM_COSTS_DRAWS)["draws"]
+    ablation = Counter()
+    for name, methods in ABLATION_METHODS.items():
+        t_run, draws = time.monotonic(), []
+        with _recorded_draws(draws):
+            a = explore(dev, small, ablation_config(methods), (-5.0, -5.0), n_steps)
+        ablation.update(a["launches"])
+        acov = a["coverage"]
+        ticks = [t for t, _ in draws]
+        same = all(t < len(committed) and np.array_equal(d.view(np.uint32),
+                                                         committed[t].view(np.uint32))
+                   for t, d in draws)
+        log(f"[7 explore] G=64 bench_ablation, {name} costs {methods}, {a['steps']} steps: "
+            f"final coverage {acov[-1]:.4f} (reference {REFERENCE_ABLATION_COVERAGE[name]} at "
+            f"step 299, ABLATION_COVERAGE.csv), {acov[10]:.4f} at step 10, {a['goals']} goals, "
+            f"{a['tick_n'] / a['tick_s']:.2f} ticks/s, {a['ctrl_n'] / a['ctrl_s']:.1f} "
+            f"controller steps/s, K3 {a['launches']['sweep']} launches"
+            + (f"; {len(draws)} RandomCosts draws (ticks {min(ticks)}-{max(ticks)}) bit-equal "
+               f"to the reference's jax.random draws in {RANDOM_COSTS_DRAWS.name}: {same}"
+               if name == "random" else "")
+            + f"; {time.monotonic() - t_run:.1f} s")
+        if not (acov[-1] > 0.5 and acov[-1] > acov[10] + 0.2):
+            raise AssertionError(f"G=64 {name} coverage {acov[10]} -> {acov[-1]} misses the "
+                                 f"bounds")
+        if name == "random" and not (draws and same and ticks == sorted(set(ticks))):
+            raise AssertionError(f"RandomCosts draws differ from the reference's at ticks "
+                                 f"{ticks}")
+        if name != "random" and draws:
+            raise AssertionError(f"{name} drew RandomCosts at ticks {ticks}")
+        if a["launches"]["sweep"] <= 0:
+            raise AssertionError(f"G=64 {name}: K3 was not launched")
+    return dict(ablation)
 
 
 # ---------------------------------------------------------------------------
@@ -2276,6 +2362,247 @@ def phase_ekf(dev, active):
     return r["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-robot fleet
+# ---------------------------------------------------------------------------
+
+
+class _Windows:
+    """A run's timer hook: each window (a coordinator tick, a rover's frame,
+    tick or controller step) between two synchronizes, with its calls, host
+    seconds, torch's count of host syncs (with the CUDA-event waits it does
+    not report) and kernel launches, keyed ``window`` or ``window<rover>``."""
+
+    def __init__(self):
+        self.r = Counter()
+        self.sites = Counter()
+
+    @contextmanager
+    def __call__(self, window, rover=None):
+        key = window if rover is None else f"{window}{rover}"
+        torch.cuda.synchronize()
+        launches, t0 = _counts(), time.perf_counter()
+        with _torch_syncs(self.r, f"{key}_torch_syncs", self.sites):
+            yield
+        torch.cuda.synchronize()
+        self.r[f"{key}_s"] += time.perf_counter() - t0
+        self.r[f"{key}_n"] += 1
+        for k, v in _counts().items():
+            self.r[f"{key}_{k}"] += v - launches[k]
+
+    def per(self, key, what):
+        return self.r[f"{key}_{what}"] / max(self.r[f"{key}_n"], 1)
+
+
+@contextmanager
+def _recorded_allocations(calls: list):
+    """Keep every TaskAllocator call's cost matrix and assignment made inside
+    the block."""
+    from fitslam_tpu_torch.models import allocation as al
+
+    real = al.TaskAllocator.allocate
+
+    def allocate(alloc, cost, fxy, peer_goals=None):
+        a = real(alloc, cost, fxy, peer_goals)
+        calls.append((np.array(cost, np.float32), np.asarray(a).astype(np.int64)))
+        return a
+
+    al.TaskAllocator.allocate = allocate
+    try:
+        yield
+    finally:
+        al.TaskAllocator.allocate = real
+
+
+def auction_check(dev):
+    """The auction alone on AUCTION_PROBLEMS random problems on the card
+    (half with uniform costs and forbidden entries, half with every row
+    preferring the same columns), each against hungarian_assign's optimum
+    within R * eps: (rounds, syncs, host ms) of each solve."""
+    from fitslam_tpu_torch.models import allocation as al
+    from fitslam_tpu_torch.utils.transfer import upload
+
+    R, F = AUCTION_SHAPE
+    out = []
+    for seed in range(AUCTION_PROBLEMS):
+        rng = np.random.RandomState(1000 + seed)
+        cost = rng.uniform(0, 10, (R, F))
+        if seed % 2:
+            cost = np.linspace(0, 10, F)[None, :] + cost / 20
+        cost = cost.astype(np.float32)
+        cost[rng.rand(R, F) < 0.2] = al.BIG
+        feasible = cost < al.BIG / 2
+        eps = max(float(cost[feasible].max() - cost[feasible].min()), 1e-3) / (4 * F)
+        dev_cost = upload(cost, dev)
+        torch.cuda.synchronize()
+        stats, t0 = {}, time.perf_counter()
+        a = al.auction_assign(dev_cost, stats=stats).cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        h = al.hungarian_assign(cost)
+        got = float(cost.astype(np.float64)[np.arange(R), a].sum())
+        opt = float(cost.astype(np.float64)[np.arange(R), h].sum())
+        if (a < 0).any() or len(set(a.tolist())) != R or not feasible[np.arange(R), a].all():
+            raise AssertionError(f"[13 fleet] auction problem {seed}: not a full assignment {a}")
+        if not got <= opt + R * eps + 1e-3:
+            raise AssertionError(f"[13 fleet] auction problem {seed}: {got} against the "
+                                 f"optimum {opt} + R eps {R * eps}")
+        out.append((stats["rounds"], stats["syncs"] + 1, ms, got - opt, R * eps))
+    return out
+
+
+def phase_fleet(dev):
+    """examples/run_multirobot.py's fleet through the port's entry point:
+    tests/test_allocation.py's two-rover runs (hungarian, minpos; 120 steps)
+    and four rovers for 150 steps (hungarian, and the auction through the
+    config), each beside the same run's first FLEET_PARITY_TICKS ticks on
+    the CPU (cost matrices and assignments equal); then the auction alone.
+    Returns the kernels' launches over the card's fleet runs."""
+    from fitslam_tpu_torch import run_multirobot as rm
+    from fitslam_tpu_torch.models import allocation as al
+    from fitslam_tpu_torch.ops.grid import UNKNOWN
+    from fitslam_tpu_torch.utils.evaluation import path_length
+
+    t_phase = time.monotonic()
+    launches = Counter()
+    for method, n_rob, steps in FLEET_RUNS:
+        t_run = time.monotonic()
+        calls, cpu_calls, win = [], [], _Windows()
+        _reset_counts()
+        with _recorded_allocations(calls):
+            r = rm.run(n_rob, steps, method, seed=2, device=dev, timer=win, verbose=False)
+        launches.update(_counts())
+        with _recorded_allocations(cpu_calls):
+            rm.run(n_rob, FLEET_PARITY_TICKS * rm.TICK_EVERY, method, seed=2, device="cpu",
+                   verbose=False)
+        n_par = min(FLEET_PARITY_TICKS, len(calls), len(cpu_calls))
+        same = [np.array_equal(calls[k][0], cpu_calls[k][0])
+                and np.array_equal(calls[k][1], cpu_calls[k][1]) for k in range(n_par)]
+        gap = max(float(np.abs(calls[k][0] - cpu_calls[k][0]).max()) for k in range(n_par))
+        coord, navs = r["coord"], r["navs"]
+        cov = r["coverage"]
+        moved = [float(np.ptp(np.array([(x, y) for x, y, _ in rb.trajectory]), axis=0).sum())
+                 for rb in r["robots"]]
+        paths = [path_length(np.array([(x, y, 0.0) for x, y, _ in rb.trajectory]))
+                 for rb in r["robots"]]
+        rounds = coord.allocator.auction_rounds
+        nav_syncs = sum(nv.host_syncs for nv in navs)
+        plans = sum(nv.plans for nv in navs)
+        log(f"[13 fleet] {n_rob} rovers, {method}, rooms seed 2, {r['steps']} of {steps} steps, "
+            f"{coord.ticks} ticks: final coverage {cov[-1]:.4f} ({(r['explored'] != UNKNOWN).mean():.4f} "
+            f"known), path lengths {' / '.join(f'{x:.1f}' for x in paths)} m; host ms a tick "
+            f"{win.per('tick', 's') * 1e3:.2f}, a step's controller steps "
+            f"{win.per('ctrl', 's') * 1e3:.2f}; host syncs a tick {coord.host_syncs / max(coord.ticks, 1):.2f} "
+            f"(torch {win.per('tick', 'torch_syncs'):.2f}), a controller step "
+            f"{nav_syncs / max(win.r['ctrl_n'] * n_rob * rm.NAV_STEPS, 1):.3f} (torch "
+            f"{win.r['ctrl_torch_syncs'] / max(win.r['ctrl_n'] * n_rob * rm.NAV_STEPS, 1):.3f}); "
+            f"K3 {win.per('tick', 'sweep'):.2f} launches a tick and {win.r['ctrl_sweep']} in "
+            f"{plans} plans"
+            + (f"; auction {np.mean(rounds):.1f} rounds a solve (max {max(rounds)}), "
+               f"{coord.allocator.host_syncs / len(rounds):.2f} host syncs a solve (a read "
+               f"a chunk of {al.AUCTION_CHUNK} rounds, then the result's)" if rounds else "")
+            + f"; card vs CPU over the first {n_par} ticks: cost matrices and assignments "
+            f"equal {all(same)} (largest cost gap {gap}), assignments "
+            + " ".join("/".join(str(int(j)) for j in calls[k][1]) for k in range(n_par))
+            + f"; {time.monotonic() - t_run:.1f} s")
+        if not (n_par == FLEET_PARITY_TICKS and all(same)):
+            raise AssertionError(f"[13 fleet] {method}: card and CPU differ in the first "
+                                 f"{FLEET_PARITY_TICKS} ticks: {same}")
+        if win.r["tick_sweep"] != n_rob * win.r["tick_n"] or win.r["ctrl_sweep"] != plans:
+            raise AssertionError(f"[13 fleet] K3 launches: {win.r['tick_sweep']} in "
+                                 f"{win.r['tick_n']} ticks, {win.r['ctrl_sweep']} in {plans} plans")
+        if (coord.host_syncs, nav_syncs) != (win.r["tick_torch_syncs"], win.r["ctrl_torch_syncs"]):
+            raise AssertionError(f"[13 fleet] host sync counts differ: engine "
+                                 f"{coord.host_syncs} / {nav_syncs}, torch "
+                                 f"{win.r['tick_torch_syncs']} / {win.r['ctrl_torch_syncs']} at "
+                                 f"{dict(win.sites)}")
+        bound_cov = 0.4 if n_rob == 2 else 0.3
+        if not (cov[-1] > bound_cov and min(moved) > 1.5):
+            raise AssertionError(f"[13 fleet] {method}: coverage {cov[-1]} (bound {bound_cov}), "
+                                 f"rovers moved {moved}")
+        if method == "auction" and not rounds:
+            raise AssertionError("[13 fleet] the auction solved nothing")
+    t_auc = time.monotonic()
+    auc = auction_check(dev)
+    rounds, syncs, ms, gaps, reps = (np.array(c) for c in zip(*auc))
+    log(f"[13 fleet] auction alone on {len(auc)} problems of {AUCTION_SHAPE}: all within R eps "
+        f"of hungarian_assign's optimum (largest gap {gaps.max():.4f} against R eps "
+        f"{reps.min():.4f}-{reps.max():.4f}); rounds a solve {rounds.mean():.1f} "
+        f"({rounds.min()}-{rounds.max()}), host syncs a solve {syncs.mean():.2f} "
+        f"({syncs.min()}-{syncs.max()}: a read a chunk of {al.AUCTION_CHUNK} rounds), "
+        f"host ms a solve {np.median(ms):.2f} (median); {time.monotonic() - t_auc:.1f} s; "
+        f"phase {time.monotonic() - t_phase:.1f} s")
+    if launches["sweep"] <= 0:
+        raise AssertionError("[13 fleet] K3 was not launched")
+    return dict(launches)
+
+
+def phase_fleet_slam(dev):
+    """examples/run_multirobot_slam.py's fleet through the port's run_fleet:
+    two rovers against one for FLEET_SLAM_STEPS frames, held to
+    tests/test_multirobot_slam.py's three bounds, then three rovers. Per
+    rover: host ms a frame, K1 / K2 launches a frame, K3 a tick and a
+    controller step, host syncs a frame and a tick (the engine's, which must
+    equal torch's over the run). Returns the kernels' launches over the
+    three runs."""
+    from fitslam_tpu_torch import run_multirobot_slam as rms
+
+    t_phase = time.monotonic()
+    launches = Counter()
+    runs = {}
+    for n_rob in (2, 1, 3):
+        t_run = time.monotonic()
+        win = _Windows()
+        _reset_counts()
+        fleet, cov = rms.run_fleet(n_rob, FLEET_SLAM_STEPS, device=dev, timer=win,
+                                   verbose=False)
+        launches.update(_counts())
+        runs[n_rob] = (fleet, cov)
+        parts = []
+        for i, (robot, nav, system) in enumerate(fleet):
+            engine = (system.slam.host_syncs + nav.host_syncs + system.explorer.host_syncs
+                      + system.host_syncs)
+            torch_n = sum(win.r[f"{w}{i}_torch_syncs"] for w in ("frame", "tick", "ctrl"))
+            parts.append(
+                f"rover {i}: {int(system.slam.map.n_kf)} keyframes, "
+                f"{int(system.slam.map.n_lm)} landmarks, {system.explorer.diag.goals_sent} "
+                f"goals, at ({robot.x:+.2f}, {robot.y:+.2f}); host ms a frame "
+                f"{win.per(f'frame{i}', 's') * 1e3:.1f}, a tick {win.per(f'tick{i}', 's') * 1e3:.1f}, "
+                f"a controller step {win.per(f'ctrl{i}', 's') * 1e3:.2f}; K1 "
+                f"{win.per(f'frame{i}', 'describe'):.2f} / K2 {win.per(f'frame{i}', 'top2'):.2f} "
+                f"launches a frame, K3 {win.per(f'tick{i}', 'sweep'):.2f} a tick and "
+                f"{win.per(f'ctrl{i}', 'sweep'):.3f} a controller step; host syncs a frame "
+                f"{win.per(f'frame{i}', 'torch_syncs'):.3f}, a tick "
+                f"{win.per(f'tick{i}', 'torch_syncs'):.2f}, a controller step "
+                f"{win.per(f'ctrl{i}', 'torch_syncs'):.3f} (engine {engine}, torch {torch_n} "
+                f"over the run)")
+            if engine != torch_n:
+                raise AssertionError(f"[13 fleet slam] rover {i} of {n_rob}: host syncs differ: "
+                                     f"engine {engine}, torch {torch_n} at {dict(win.sites)}")
+        log(f"[13 fleet slam] {n_rob} rover(s), 320x240, {FLEET_SLAM_STEPS} frames: union "
+            f"coverage {cov[-1]:.4f}; " + "; ".join(parts)
+            + f"; {time.monotonic() - t_run:.1f} s")
+    (fleet, fleet_cov), (_, solo_cov) = runs[2], runs[1]
+    for i, (robot, nav, system) in enumerate(fleet):
+        if not (int(system.slam.map.n_kf) >= 4 and int(system.slam.map.n_lm) >= 200):
+            raise AssertionError(f"[13 fleet slam] rover {i} made too few keyframes or landmarks")
+    (r0, _, _), (r1, _, _) = fleet
+    moved = [float(np.ptp(np.array([(x, y) for x, y, _ in rb.trajectory]), axis=0).sum())
+             for rb in (r0, r1)]
+    apart = float(np.linalg.norm([r0.x - r1.x, r0.y - r1.y]))
+    log(f"[13 fleet slam] tests/test_multirobot_slam.py's bounds: fleet coverage "
+        f"{fleet_cov[-1]:.4f} against solo {solo_cov[-1]:.4f} + 0.05; rovers moved "
+        f"{moved[0]:.2f} / {moved[1]:.2f} m, {apart:.2f} m apart; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    if not fleet_cov[-1] > solo_cov[-1] + 0.05:
+        raise AssertionError(f"[13 fleet slam] fleet {fleet_cov[-1]} vs solo {solo_cov[-1]}")
+    if not (min(moved) > 1.0 and apart > 2.0):
+        raise AssertionError(f"[13 fleet slam] rovers moved {moved}, {apart} m apart")
+    if min(launches[k] for k in ("describe", "top2", "sweep")) <= 0:
+        raise AssertionError(f"[13 fleet slam] a kernel of the path was not launched: "
+                             f"{dict(launches)}")
+    return dict(launches)
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -2389,7 +2716,8 @@ def main() -> int:
     phase_golden(dev)
     n = phase_bench(dev)
     k3 = phase_k3(dev)
-    paths = {"bench": n, "explore": phase_explore(dev)}
+    paths = {"bench": n}
+    paths["explore"], paths["ablation"] = phase_explore(dev)
     active = phase_active(dev)
     paths.update(active=active["launches"], marsyard=phase_marsyard(dev), rgbd=phase_rgbd(dev))
     loop = phase_loop(dev)
@@ -2399,6 +2727,8 @@ def main() -> int:
     phase_ba(dev, loop)
     paths["dataset"], paths["tum"] = phase_dataset(dev)
     paths["ekf"] = phase_ekf(dev, active)
+    paths["fleet"] = phase_fleet(dev)
+    paths["fleet_slam"] = phase_fleet_slam(dev)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just

@@ -27,6 +27,7 @@ from fitslam_tpu_torch.models.roadmap import INF, _dist
 from fitslam_tpu_torch.ops import raycast
 from fitslam_tpu_torch.ops.frontier import Frontiers
 from fitslam_tpu_torch.ops.grid import LETHAL, UNKNOWN, GridSpec2D
+from fitslam_tpu_torch.utils import prng
 from fitslam_tpu_torch.utils.transfer import upload
 
 
@@ -66,17 +67,16 @@ def assign_costs(
     robot_xy: torch.Tensor | None = None,  # (2,) for closeness rejection
     closeness_rejection: float = 0.5,
     methods: Tuple[str, ...] = ("RoadmapPlannerDistance", "ArrivalInformation"),
+    rng_key: np.ndarray | None = None,     # (2,) uint32 for the RandomCosts ablation
 ) -> FrontierCosts:
     """Full cost pipeline for all frontiers at once.
 
     `methods` selects the cost calculation: the default utility combines
-    roadmap distance + arrival information; "ClosestFrontier" is pure
-    Euclidean distance. "RandomCosts" draws from ``jax.random``, whose
-    stream torch cannot reproduce (ROADMAP fault F4): it raises here."""
-    if "RandomCosts" in methods:
-        raise NotImplementedError(
-            "RandomCosts draws its costs from jax.random, which the port cannot "
-            "reproduce (ROADMAP queue 3, F4)")
+    roadmap distance + arrival information; the ablation baselines are
+    "RandomCosts" (a uniform random cost per frontier, the reference's
+    ``jax.random`` draw reproduced bit for bit on the host by
+    ``utils/prng.py`` and uploaded once) and "ClosestFrontier" (pure
+    Euclidean distance); exclusion rules still apply in every mode."""
     F = fr.valid.shape[0]
 
     heading, info = raycast.arrival_information(
@@ -127,7 +127,13 @@ def assign_costs(
     u = alpha * info_norm + (1.0 - alpha) * (1.0 - torch.clamp(time_norm, 0.0, 1.0))
     weighted = 1.0 / torch.clamp_min(beta * u, 1e-6)
 
-    if "ClosestFrontier" in methods:
+    if "RandomCosts" in methods:
+        # setRandomMetaData: every frontier gets a uniform random cost, the
+        # lower bound for method comparison
+        key = prng.prng_key(0) if rng_key is None else rng_key
+        weighted = upload(prng.uniform(key, (F,), 1.0, 100.0), occ.device)
+        u = 1.0 / weighted
+    elif "ClosestFrontier" in methods:
         # setClosestFrontierMetaData: greedy nearest-frontier
         d_r = (_dist(fr.goal_xy, robot_xy[None, :]) if robot_xy is not None else path_len)
         weighted = d_r

@@ -39,6 +39,7 @@ from fitslam_tpu_torch.ops import frontier as fx
 from fitslam_tpu_torch.ops import lie, raycast
 from fitslam_tpu_torch.ops.grid import UNKNOWN, GridSpec2D
 from fitslam_tpu_torch.utils import logging as logx
+from fitslam_tpu_torch.utils import prng
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 from fitslam_tpu_torch.utils.transfer import upload
@@ -318,10 +319,13 @@ class ExplorationServer:
                     fov_half_angle=fcfg.fov_half_angle,
                     max_range=fcfg.max_landmark_distance,
                 )
+            methods = tuple(self.cfg.cost_assigner.cost_calculation_methods)
             costs = cx.assign_costs(
                 self.spec, occ, fr, self.roadmap.xy, self.roadmap.valid,
                 robot_dist, blacklisted,
-                methods=tuple(self.cfg.cost_assigner.cost_calculation_methods),
+                methods=methods,
+                rng_key=(prng.prng_key(self.diag.ticks)
+                         if "RandomCosts" in methods else None),
                 alpha=self.cfg.cost_assigner.alpha,
                 beta=self.cfg.cost_assigner.beta,
                 v_max=self.cfg.cost_assigner.max_linear_velocity,

@@ -1,16 +1,16 @@
 """The port's configuration: the sections of ``fitslam_tpu/utils/config.py``
-that the stereo slice (camera, orb, tracking, mapping, loop) and the
-rapid-exploration and active-SLAM slices (traversability through recovery) read, with
+that the ported slices read (the stereo slice's camera, orb, tracking,
+mapping and loop; exploration and active SLAM's traversability through
+recovery; the dual EKF's localization; the fleet's multi_robot), with
 ``FitSlamConfig.preset`` and ``validate``.
 
 The port keeps its own copy so that it, and ``chip_smoke.py`` on the card,
 import nothing of the reference package. Field names and defaults equal the
 reference's field for field (``tests/test_torch_utils.py`` checks it), so a
 reference ``FitSlamConfig`` can be passed to the port's ``StereoSlam``,
-``ExplorationServer`` and ``ActiveSlamSystem`` as well. ``localization`` is
-here because ``ActiveSlamSystem`` reads it (the EKF it enables is not ported
-yet). The sections no ported slice reads (multi_robot, parallel) are not
-here; YAML loading stays with the reference.
+``ExplorationServer``, ``ActiveSlamSystem`` and ``MultiRobotCoordinator``
+as well. The one section no ported slice reads (parallel) is not here; YAML
+loading stays with the reference.
 """
 
 from __future__ import annotations
@@ -359,6 +359,12 @@ class LocalizationConfig:
 
 
 @dataclass(frozen=True)
+class MultiRobotConfig:
+    max_robots: int = 4
+    allocator: str = "hungarian"    # or "minpos"
+
+
+@dataclass(frozen=True)
 class FitSlamConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: OrbConfig = field(default_factory=OrbConfig)
@@ -379,6 +385,7 @@ class FitSlamConfig:
     costmaps: CostmapsConfig = field(default_factory=CostmapsConfig)
     localization: LocalizationConfig = field(default_factory=LocalizationConfig)
     recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+    multi_robot: MultiRobotConfig = field(default_factory=MultiRobotConfig)
 
     @staticmethod
     def preset(mode: str) -> "FitSlamConfig":

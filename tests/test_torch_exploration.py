@@ -136,6 +136,58 @@ def test_one_tick_equals_reference(reference_state, with_goal):
     assert 1 <= tserver.host_syncs <= 3
 
 
+def _peer_servers(explored, pose, peers):
+    """A reference and a port server, fresh, on one explored map and pose,
+    with ``peers`` as their peers' goals (the multi-robot goal-sharing
+    seam)."""
+    navs = (_recording_nav(jex), _recording_nav(tex))
+    jserver = jex.ExplorationServer(_test_config(JConfig), JSPEC, lambda: jnp.asarray(explored),
+                                    navs[0], get_robot_pose=lambda: pose,
+                                    peer_goals=lambda: list(peers))
+    occ_t = torch.tensor(explored)
+    tserver = tex.ExplorationServer(_test_config(FitSlamConfig), SPEC, lambda: occ_t, navs[1],
+                                    get_robot_pose=lambda: pose, device="cpu",
+                                    peer_goals=lambda: list(peers))
+    for srv in (jserver, tserver):
+        srv._last_cleanup = 1e18
+    return jserver, tserver, navs
+
+
+def test_peer_goals_seam_equals_reference():
+    """A peer's goal on the frontier the tick would pick: both packages mask
+    the same frontiers and send the robot to the same other goal."""
+    from fitslam_tpu.ops import frontier as jfx
+
+    gt = jnp.asarray(jsim.make_rooms_world(JSPEC, seed=1))
+    explored = jnp.full((64, 64), jgrid.UNKNOWN, jnp.uint8)
+    for xy in ([-5.0, -5.0], [-3.0, -4.0]):
+        explored = jsim.reveal_sensor(JSPEC, gt, explored, jnp.asarray(xy, jnp.float32),
+                                      range_m=3.0)
+    explored = np.asarray(explored)
+    pose = (np.array([-4.0, -4.5]), 0.3)
+    jserver, tserver, navs = _peer_servers(explored, pose, [])
+    jserver.tick()
+    tserver.tick()
+    best = navs[0].sent[0][0]
+    np.testing.assert_array_equal(navs[1].sent[0][0], best)
+
+    peers = [best.copy(), None, np.array([4.2, -3.1])]
+    jserver, tserver, navs = _peer_servers(explored, pose, peers)
+    fr = jfx.extract_frontiers(JSPEC, jnp.asarray(explored), jnp.zeros(2), jnp.float32(16.0),
+                               max_cells=4096, max_frontiers=64)
+    mask_j = np.asarray(jserver._blacklist_mask(fr))
+    mask_t = tserver._blacklist_mask(interop.to_torch(jax.tree.map(np.asarray, fr))).numpy()
+    np.testing.assert_array_equal(mask_t, mask_j)
+    assert mask_j.sum() >= 1
+    jserver.tick()
+    tserver.tick()
+    assert tserver.diag.frontiers_found == jserver.diag.frontiers_found
+    assert len(navs[0].sent) == len(navs[1].sent) == 1
+    np.testing.assert_array_equal(navs[1].sent[0][0], navs[0].sent[0][0])
+    assert abs(navs[1].sent[0][1] - navs[0].sent[0][1]) <= 1e-6
+    assert np.linalg.norm(navs[0].sent[0][0] - best) > 0.5
+
+
 @pytest.fixture(scope="module")
 def exploration_run():
     """tests/test_exploration_e2e.py's loop, through the port."""

@@ -7,6 +7,8 @@ distances within 1e-5 (float32 Bellman-Ford sums); costs within 1e-5 and
 every selected index exact.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +26,7 @@ from fitslam_tpu_torch.models import roadmap as trm
 from fitslam_tpu_torch.ops import frontier as tfx
 from fitslam_tpu_torch.ops import grid as tgrid
 from fitslam_tpu_torch.ops import lie as tlie
-from fitslam_tpu_torch.utils import interop
+from fitslam_tpu_torch.utils import interop, prng
 
 # several pytest-xdist workers share the machine: torch's default of one
 # intra-op thread per core would oversubscribe it
@@ -255,9 +257,62 @@ def test_tsp_with_a_closest_global_equals_reference():
     _assert_tree_equal(interop.to_numpy(plan_t), _np(plan_j), atol=1e-5)
 
 
+RANDOM_COSTS_DRAWS = Path(__file__).resolve().parent / "data" / "random_costs_draws.npz"
+
+
+@pytest.mark.parametrize("F", [1, 2, 7, 64, 100, 256])
+def test_prng_uniform_bit_equal_to_jax_random(F):
+    """utils/prng.py's Threefry draw equals jax.random's bit for bit: the
+    key of PRNGKey(t), the raw bits and the float32 uniforms in [1, 100)."""
+    for t in (0, 1, 2, 17, 149, 150, 65535, 2 ** 31 - 1):
+        key = jax.random.PRNGKey(t)
+        np.testing.assert_array_equal(prng.prng_key(t), np.asarray(jax.random.key_data(key)))
+        np.testing.assert_array_equal(prng.random_bits(prng.prng_key(t), (F,)),
+                                      np.asarray(jax.random.bits(key, (F,), jnp.uint32)))
+        ref = np.asarray(jax.random.uniform(key, (F,), minval=1.0, maxval=100.0))
+        got = prng.uniform(prng.prng_key(t), (F,), 1.0, 100.0)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    ref = np.asarray(jax.random.uniform(jax.random.PRNGKey(3), (2, F)))
+    np.testing.assert_array_equal(prng.uniform(prng.prng_key(3), (2, F)), ref)
+
+
+def test_random_costs_draws_file_equals_jax():
+    """tests/data/random_costs_draws.npz: the reference's RandomCosts draws for
+    ticks 0-150 at the ablation's max_frontiers = 64, regenerated with JAX."""
+    data = np.load(RANDOM_COSTS_DRAWS)
+    ticks, draws = data["ticks"], data["draws"]
+    np.testing.assert_array_equal(ticks, np.arange(151))
+    ref = np.stack([np.asarray(jax.random.uniform(jax.random.PRNGKey(int(t)), (64,),
+                                                  minval=1.0, maxval=100.0)) for t in ticks])
+    np.testing.assert_array_equal(draws.view(np.uint32), ref.view(np.uint32))
+    port = np.stack([prng.uniform(prng.prng_key(int(t)), (64,), 1.0, 100.0) for t in ticks])
+    np.testing.assert_array_equal(port.view(np.uint32), draws.view(np.uint32))
+
+
 def test_random_costs_raise_not_implemented():
+    """RandomCosts (ROADMAP F11, closed): the port once raised here; now
+    ``assign_costs(methods=("RandomCosts",))`` equals the reference's for the
+    tick keys the exploration server passes and for the default key."""
     occ, rj, rt = _roadmaps(0, max_nodes=32)
-    frt = tfx.extract_frontiers(TS, torch.tensor(occ), torch.zeros(2), 12.0, max_frontiers=16)
-    with pytest.raises(NotImplementedError, match="RandomCosts"):
-        tcx.assign_costs(TS, torch.tensor(occ), frt, rt.xy, rt.valid, torch.zeros(32),
-                         torch.zeros(16, dtype=torch.bool), methods=("RandomCosts",))
+    robot = np.array([-1.0, 0.5], np.float32)
+    frj = jfx.extract_frontiers(JS, jnp.asarray(occ), jnp.asarray(robot), jnp.float32(12.0),
+                                max_cells=1024, max_frontiers=16)
+    frt = interop.to_torch(_np(frj))
+    dist_j, _, _ = jrm.shortest_paths(rj, jnp.asarray(robot))
+    dist_t, _, _ = trm.shortest_paths(rt, torch.tensor(robot))
+    bl = np.zeros(16, bool)
+    bl[1] = True
+    for t in (None, 0, 1, 150):
+        cj = jcx.assign_costs(JS, jnp.asarray(occ), frj, rj.xy, rj.valid, dist_j,
+                              jnp.asarray(bl), methods=("RandomCosts",),
+                              robot_xy=jnp.asarray(robot),
+                              rng_key=None if t is None else jax.random.PRNGKey(t))
+        ct = tcx.assign_costs(TS, torch.tensor(occ), frt, rt.xy, rt.valid, dist_t,
+                              torch.tensor(bl), methods=("RandomCosts",),
+                              robot_xy=torch.tensor(robot),
+                              rng_key=None if t is None else prng.prng_key(t))
+        _assert_tree_equal(interop.to_numpy(ct), _np(cj), atol=1e-5)
+        np.testing.assert_array_equal(ct.weighted_cost.numpy(), np.asarray(cj.weighted_cost))
+        np.testing.assert_array_equal(ct.utility.numpy(), np.asarray(cj.utility))
+    assert np.asarray(cj.achievable).sum() > 1

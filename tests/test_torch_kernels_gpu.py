@@ -356,3 +356,76 @@ def test_dual_ekf_on_the_card_matches_cpu(cuda):
     assert np.array_equal(card, again) and np.array_equal(card_x, again_x)
     np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
     np.testing.assert_allclose(card_x, cpu_x, rtol=0, atol=1e-5)
+
+
+def test_k3_r_wavefronts_in_a_row_equal_twin(cuda):
+    """The coordinator's use of K3: R = 4 wavefronts in a row on one map, one
+    from each rover, queued back to back, each equal to its plain twin."""
+    spec = grid.GridSpec2D(64, 0.25, -8.0, -8.0)
+    occ = torch.tensor(sim_robot.make_rooms_world(spec, seed=2), device=cuda)
+    starts = [(-5.0, -5.0), (5.0, 5.0), (-5.0, 5.0), (5.0, -5.0)]
+    before = pg.wavefront_sweeps.launches
+    pots = [nav.wavefront_potential(spec, occ, torch.tensor(s, device=cuda), iters=192)
+            for s in starts]
+    assert pg.wavefront_sweeps.launches == before + len(starts)
+    for s, pot in zip(starts, pots):
+        ref = nav.wavefront_potential(spec, occ.cpu(), torch.tensor(s), iters=192)
+        assert torch.equal(pot.cpu(), ref)
+
+
+def test_coordinator_cost_matrix_on_the_card_equals_cpu(cuda, monkeypatch):
+    """One MultiRobotCoordinator tick of 4 rovers on a partly explored map:
+    the cost matrix, its assignment and the goals sent on the card equal the
+    CPU's exactly (K3 against its twin, the gather and the host solver)."""
+    from fitslam_tpu_torch.models import allocation as al
+
+    spec = grid.GridSpec2D(64, 0.25, -8.0, -8.0)
+    gt = torch.tensor(sim_robot.make_rooms_world(spec, seed=2))
+    poses = [(np.array([-5.0, -5.0]), 0.0), (np.array([4.6, 5.2]), 3.0),
+             (np.array([-4.4, 4.9]), -1.5), (np.array([5.1, -4.7]), 1.5)]
+    explored = torch.full((64, 64), grid.UNKNOWN, dtype=torch.uint8)
+    for xy, _ in poses:
+        explored = sim_robot.reveal_sensor(spec, gt, explored,
+                                           torch.tensor(xy, dtype=torch.float32), range_m=3.0)
+    calls = []
+    real = al.TaskAllocator.allocate
+
+    def allocate(alloc, cost, fxy, peer_goals=None):
+        a = real(alloc, cost, fxy, peer_goals)
+        calls.append((np.array(cost), np.asarray(a)))
+        return a
+
+    monkeypatch.setattr(al.TaskAllocator, "allocate", allocate)
+
+    class StillNav:
+        def __init__(self):
+            self.goals = []
+
+        def send_goal(self, goal, heading):
+            self.goals.append(np.asarray(goal))
+
+        def cancel(self):
+            pass
+
+        def status(self):
+            return None
+
+    from fitslam_tpu_torch.run_multirobot import fleet_config
+
+    goals = []
+    for method in ("hungarian", "minpos", "auction"):
+        for dev in (cuda, torch.device("cpu")):
+            navs = [StillNav() for _ in poses]
+            occ = explored.to(dev)
+            coord = al.MultiRobotCoordinator(fleet_config(method), spec, lambda: occ, navs,
+                                             lambda: poses, device=dev)
+            before = pg.wavefront_sweeps.launches
+            coord.tick()
+            if dev.type == "cuda":
+                assert pg.wavefront_sweeps.launches == before + len(poses)
+            goals.append([n.goals for n in navs])
+        (card_c, card_a), (cpu_c, cpu_a) = calls[-2:]
+        assert np.array_equal(card_c, cpu_c) and np.array_equal(card_a, cpu_a)
+        assert (card_c < al.BIG / 2).sum() > 10
+        for gc, gcpu in zip(goals[-2], goals[-1]):
+            assert len(gc) == len(gcpu) == 1 and np.array_equal(gc[0], gcpu[0])

@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SECTIONS = ["camera", "orb", "tracking", "mapping", "loop", "traversability",
             "frontier_search", "cost_calculator", "cost_assigner", "roadmap",
             "path_optimizer", "goal_hysteresis", "fisher_information", "exploration_bt",
-            "sensor_simulator", "nav", "costmaps", "localization", "recovery"]
+            "sensor_simulator", "nav", "costmaps", "localization", "recovery", "multi_robot"]
 
 
 @pytest.mark.parametrize("section", SECTIONS)
