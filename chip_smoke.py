@@ -107,10 +107,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
      aligned, < 0.3 m unaligned, the replay's keyframes equal the synthetic
      run's); the three committed worlds drawn again on the host by
      ``utils/prng.py`` equal to their files.
+ 15. (three lines) the sharded solvers of fitslam_tpu_torch/parallel/ over
+     ranks spawned on the card (gloo, every rank on card 0): on phase 10's
+     seed-1 map, slam_map.global_ba_dist over 2 and 4 ranks against
+     global_ba on one (ms an iteration, the collectives' ms in it, peak
+     memory a rank, two runs bit-equal), the observation-sharded BA against
+     bundle_adjust, edge-sharded PGO on the map's odometry, covisibility and
+     loop edges against optimize_pose_graph; phase 8's clouds fused
+     point-sharded (counts, z extrema and cost equal to one rank's) and its
+     frontiers raycast frontier-sharded (exact); stage_pipelined_slam at
+     bench width over 20 frames against the sequential path on one rank
+     (poses within 1e-4, keyframes and inliers equal, K1 exactly 2 a frame
+     on rank 0, frames/s of both); two ``python -m
+     fitslam_tpu_torch.parallel.multihost`` processes and ``python -m
+     fitslam_tpu_torch.parallel.dryrun 2``.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
 pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
 gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
-loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo), error, device times
+loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, and stage: the
+pipeline's ranks summed), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -638,12 +653,15 @@ def phase_k2(dev):
                                          f"with {plan} at {shape}")
             t = cuda_time_ms(lambda: pm.hamming_top2(**p, mode=mode, gate=gate, plan=plan))
             split_ms[name, k] = min(split_ms.get((name, k), t), t)
-    p = problems[1024, 8192]
-    # yardstick: the +-1 product at K2's core as one bf16 matmul; it is not
-    # the gated top-2 (no PyTorch call computes that)
-    a_pm1 = pm._unpack_pm1(p["a_bits"]).to(torch.bfloat16)
-    b_pm1 = pm._unpack_pm1(p["b_bits"]).to(torch.bfloat16).T.contiguous()
-    lib = cuda_time_ms(lambda: torch.matmul(a_pm1, b_pm1))
+    # yardstick: the +-1 product at K2's core as one bf16 matmul, at both
+    # main-path shapes; it is not the gated top-2 (no PyTorch call computes that)
+    lib_at = {}
+    for shape in ((1024, 8192), (1024, 1024)):
+        p = problems[shape]
+        a_pm1 = pm._unpack_pm1(p["a_bits"]).to(torch.bfloat16)
+        b_pm1 = pm._unpack_pm1(p["b_bits"]).to(torch.bfloat16).T.contiguous()
+        lib_at[shape] = cuda_time_ms(lambda: torch.matmul(a_pm1, b_pm1))
+    lib, lib_st = lib_at[1024, 8192], lib_at[1024, 1024]
     b_win = bound(_k2_bytes(1024, 8192, pm.GATE_WINDOW), 2 * 1024 * 8192 * 256, "int8")
     b_st = bound(_k2_bytes(1024, 1024, pm.GATE_STEREO), 2 * 1024 * 1024 * 256, "int8")
     label = {pm.DEFAULT_DESIGN: " (shipped)"}
@@ -663,7 +681,7 @@ def phase_k2(dev):
                                     for k in K2_BLOCKS_PER_SM)
             for shape, _, name in cases)
         + f" (best of two turns, each exactly equal); bf16 +-1 matmul 1024x256 @ 256x8192 "
-        f"{_us(lib)}")
+        f"{_us(lib)}, 1024x256 @ 256x1024 {_us(lib_st)}")
     return {"max_abs_err": worst, "ms": dev_ms["window", pm.DEFAULT_DESIGN],
             "plain_ms": dev_ms["window", "plain"], **b_win, "library_ms": lib[0],
             "library_call": "bf16 +-1 torch.matmul (1024x256) @ (256x8192), the product "
@@ -673,7 +691,7 @@ def phase_k2(dev):
             "pr2_ms_note": "the first port's K2 kernel is not in this tree; PERF.md gives its "
                            "time from a run of the parent commit in the same call",
             "stereo_ms": dev_ms["stereo", pm.DEFAULT_DESIGN],
-            "stereo_bound_ms": b_st["bound_ms"],
+            "stereo_bound_ms": b_st["bound_ms"], "stereo_library_ms": lib_st[0],
             "design_ms": {f"{name} {d}": dev_ms[name, d] for _, _, name in cases for d in order}}
 
 
@@ -760,9 +778,9 @@ def bench_config():
     )
 
 
-def bench_frames(dev, cfg):
-    """The bench's N_BENCH_FRAMES stereo pairs, rendered on the card, and the
-    ground-truth camera poses as float64 matrices."""
+def bench_frames(dev, cfg, n=None):
+    """The bench's first ``n`` (N_BENCH_FRAMES) stereo pairs, rendered on the
+    card, and the ground-truth camera poses as float64 matrices."""
     from fitslam_tpu_torch.data import synthetic
     from fitslam_tpu_torch.ops import lie
     from fitslam_tpu_torch.ops.geometry import Intrinsics
@@ -776,7 +794,7 @@ def bench_frames(dev, cfg):
     T_gt = synthetic.straight_trajectory(N_BENCH_FRAMES, length=N_BENCH_FRAMES * 0.15,
                                          height=1.2, start_x=0.5, device=dev)
     frames = [synthetic.render_stereo(K, world, lie.SE3(T_gt.R[i], T_gt.t[i]), width=W, height=H)
-              for i in range(N_BENCH_FRAMES)]
+              for i in range(n or N_BENCH_FRAMES)]
     gt = [m.cpu().numpy().astype(np.float64) for m in T_gt.matrix()]
     torch.cuda.synchronize()
     return K, frames, gt
@@ -2868,6 +2886,421 @@ def phase_entry(dev):
         f"{time.monotonic() - t_phase:.1f} s")
     return n_act, n_vo
 
+
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded solvers of parallel/ over ranks on the card
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = (2, 4)        # GBA over 2 ranks, then 4, all sharing card 0 (gloo)
+PARALLEL_OBS_ITERS = 3         # the observation-sharded BA's Y (189 MB) crosses every iteration
+PIPELINE_FRAMES = 20           # bench frames through the stage pipeline after the bootstrap
+SHARDED_TOL = 5e-3             # tests/test_dist_ba.py's sharded-versus-single bound (m)
+PGO_TOL = 1e-3                 # tests/test_torch_pgo.py's bound on optimized poses (ROADMAP F5)
+PIPELINE_TOL = 1e-4            # tests/test_stage_pipeline.py's bound on the poses
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _tree_to(tree, dev):
+    from fitslam_tpu_torch.parallel.mesh import map_tree
+
+    return map_tree(lambda x: x.to(dev), tree)
+
+
+def _pipeline_start(dev, cfg, frames):
+    """The bootstrap of tests/test_stage_pipeline.py at bench width: frame 0
+    inserted as keyframe 0 into an empty map of the bench's capacity."""
+    from fitslam_tpu_torch.models import slam_map as sm
+    from fitslam_tpu_torch.models import tracking as tr
+    from fitslam_tpu_torch.ops import lie
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+
+    K, o, mp = Intrinsics.from_config(cfg.camera, dev), cfg.orb, cfg.mapping
+    f0 = tr.process_stereo(K, *frames[0], num_features=o.num_features, num_levels=o.num_levels,
+                           scale_factor=o.scale_factor, fast_threshold=o.fast_threshold)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    m = sm.empty_map(mp.max_keyframes, mp.max_landmarks, mp.max_observations, device=dev)
+    m = sm.insert_keyframe(m, K, lie.SE3.identity(device=dev), f0.feats, f0.depth,
+                           torch.full((o.num_features,), -1, dtype=torch.int32, device=dev),
+                           zero, torch.zeros((256,), device=dev))
+    return K, m, tr.mark_keyframe(tr.init_track_state(dev), zero)
+
+
+def _timed_gba(mesh, m, K, iters):
+    """global_ba_dist twice (host ms of each, the device synchronised around
+    it) and once with its collectives timed; peak memory above the map."""
+    from fitslam_tpu_torch.models import slam_map as sm
+
+    dev = mesh.device
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    runs, wall = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(sm.global_ba_dist(m, K, mesh, iters=iters))
+        _sync(dev)
+        wall.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    (a, ca), (b, cb) = runs
+    same = all(torch.equal(x, y) for x, y in ((a.kf_T_cw.R, b.kf_T_cw.R), (a.kf_T_cw.t, b.kf_T_cw.t),
+                                              (a.lm_pos, b.lm_pos), (ca, cb)))
+    mesh.timed, s0, c0 = True, mesh.stats["seconds"], mesh.stats["collectives"]
+    sm.global_ba_dist(m, K, mesh, iters=iters)
+    mesh.timed = False
+    return dict(map=a, chis=ca, same=same, ms_iter=min(wall) / iters * 1e3,
+                allreduce_ms_iter=(mesh.stats["seconds"] - s0) / iters * 1e3,
+                collectives=mesh.stats["collectives"] - c0, peak_gb=peak / 1e9)
+
+
+def _parallel_rank(n, dev_map, K, iters, rest):
+    """One rank of phase 15. Every launch: GBA landmark-sharded over the
+    ranks. With ``rest`` (2 ranks): the observation-sharded BA, edge-sharded
+    PGO, point-sharded fusion, frontier-sharded raycast and the stage
+    pipeline at bench width, with this rank's K1 / K2 launches in it."""
+    from fitslam_tpu_torch.ops import ba
+    from fitslam_tpu_torch.parallel import dist_ba, dist_stages as ds, mesh as mesh_mod
+
+    mesh = mesh_mod.make_mesh(n)
+    dev = mesh.device
+    m, K = _tree_to(dev_map, dev), _tree_to(K, dev)
+    out = dict(rank=mesh.rank, gba=_timed_gba(mesh, m, K, iters))
+    if rest is None:
+        return out
+    # observation-sharded BA on the map's whole problem
+    prob = ba.BAProblem(m.kf_T_cw, m.lm_pos, ba.Observations(m.obs_kf, m.obs_lm, m.obs_uvr,
+                                                             m.obs_sigma2, m.obs_valid),
+                        torch.logical_not(m.kf_valid) | (torch.arange(m.kf_valid.shape[0],
+                                                                      device=dev) == 0),
+                        torch.logical_not(m.lm_valid))
+    def warm_wall(fn):
+        """(fn()'s result, host seconds of its second call, the device
+        synchronised around it): the first call loads the kernels' modules."""
+        fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        return res, time.perf_counter() - t0
+
+    (ob, ob_chis), ob_wall = warm_wall(
+        lambda: dist_ba.distributed_bundle_adjust(mesh, K, prob, iters=PARALLEL_OBS_ITERS))
+    mesh.timed, s0 = True, mesh.stats["seconds"]
+    dist_ba.distributed_bundle_adjust(mesh, K, prob, iters=PARALLEL_OBS_ITERS)
+    mesh.timed = False
+    out["obs"] = dict(T=ob.T_cw, points=ob.points, chis=ob_chis,
+                      ms_iter=ob_wall / PARALLEL_OBS_ITERS * 1e3,
+                      allreduce_ms_iter=(mesh.stats["seconds"] - s0) / PARALLEL_OBS_ITERS * 1e3)
+    T0, kf_valid, edges, fixed, pgo_iters = _tree_to(rest["pgo"], dev)
+    out["pgo"], pgo_wall = warm_wall(
+        lambda: ds.distributed_pose_graph(mesh, T0, kf_valid, edges, fixed, iters=pgo_iters))
+    out["pgo_ms_iter"] = pgo_wall / pgo_iters * 1e3
+    spec, pts_w, ok, kw = rest["fusion"]
+    out["grid"] = ds.sharded_fuse_clouds(mesh, spec, pts_w.to(dev), ok.to(dev), **kw)
+    spec, occ, fxy, f_valid = rest["raycast"]
+    out["ray"] = ds.sharded_arrival_information(mesh, spec, occ.to(dev), fxy.to(dev),
+                                                f_valid.to(dev))
+    # the stage pipeline: frames 1..PIPELINE_FRAMES after the bootstrap frame
+    cfg, backend_kw = rest["pipeline"]
+    stage = mesh_mod.make_mesh(2, axis_names=("stage",))
+    _, frames, _ = bench_frames(dev, cfg, PIPELINE_FRAMES + 1)
+    Kp, m0, st0 = _pipeline_start(dev, cfg, frames)
+    stream = torch.stack([torch.stack(f) for f in frames[1:]])
+    o = cfg.orb
+
+    def pipeline(frames):
+        return ds.stage_pipelined_slam(
+            stage, Kp, m0, st0, frames, num_features=o.num_features, num_levels=o.num_levels,
+            scale_factor=o.scale_factor, fast_threshold=o.fast_threshold,
+            backend_kwargs=backend_kw)
+
+    pipeline(stream[:4])    # first calls
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    m_p, st_p, outs = pipeline(stream)
+    _sync(dev)
+    out["pipeline"] = dict(outs=outs, n_kf=int(m_p.n_kf), T_cw_t=st_p.T_cw.t,
+                           fps=PIPELINE_FRAMES / (time.perf_counter() - t0), launches=_counts())
+    return out
+
+
+def _sequential_pipeline(dev, cfg, backend_kw):
+    """The port's sequential path on one rank over the pipeline's frames:
+    (poses, keyframe flags, inliers, frames/s)."""
+    from fitslam_tpu_torch.models import tracking as tr
+    from fitslam_tpu_torch.models.slam_step import _backend_body
+
+    _, frames, _ = bench_frames(dev, cfg, PIPELINE_FRAMES + 1)
+    K, m0, st0 = _pipeline_start(dev, cfg, frames)
+    o = cfg.orb
+
+    def run(frames):
+        m, st, initialized, outs = m0, st0, True, []
+        for t, (l, r) in enumerate(frames):
+            f = tr.process_stereo(K, l, r, num_features=o.num_features, num_levels=o.num_levels,
+                                  scale_factor=o.scale_factor, fast_threshold=o.fast_threshold)
+            m, st, out, inserted, _ = _backend_body(K, m, st, f, t, initialized=initialized,
+                                                    **backend_kw)
+            initialized = initialized or inserted
+            outs.append(out)
+        return outs
+
+    run(frames[1:5])    # first calls, as the pipeline's
+    _sync(dev)
+    t0 = time.perf_counter()
+    outs = run(frames[1:])
+    _sync(dev)
+    fps = PIPELINE_FRAMES / (time.perf_counter() - t0)
+    return (torch.stack([o_.pose_wc for o_ in outs]).cpu(),
+            [bool(o_.was_keyframe) for o_ in outs], [int(o_.n_inliers) for o_ in outs], fps)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_entry_points(dev):
+    """Two ``python -m fitslam_tpu_torch.parallel.multihost`` processes
+    sharing ``dev`` over gloo, then ``python -m fitslam_tpu_torch.parallel.dryrun
+    2`` on it: (the processes' results, the dry run's line, seconds)."""
+    t0 = time.monotonic()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fitslam_tpu_torch.parallel.multihost", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(pid), "--backend",
+         "gloo", "--device", str(dev)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    results = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"[15 parallel] multihost exited {p.returncode}:\n{text}")
+            line = [ln for ln in text.splitlines() if ln.startswith("MULTIHOST_RESULT ")]
+            if not line:
+                raise AssertionError(f"[15 parallel] multihost printed no result:\n{text}")
+            results.append(json.loads(line[-1].split(" ", 1)[1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    proc = subprocess.run([sys.executable, "-m", "fitslam_tpu_torch.parallel.dryrun", "2",
+                           "--device", str(dev)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[15 parallel] dryrun exited {proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    return results, proc.stdout.strip().splitlines()[-1], time.monotonic() - t0
+
+
+def phase_parallel(dev, loop_run, active_run):
+    """[15 parallel]: the sharded solvers of parallel/ over ranks spawned on
+    the card (gloo, every rank on card 0). On phase 10's seed-1 map (128
+    keyframes, 20480 landmarks, 65536 observations): global_ba_dist over 2
+    and 4 ranks against global_ba on one, the observation-sharded BA against
+    bundle_adjust, edge-sharded PGO on the map's odometry, covisibility and
+    loop edges against optimize_pose_graph; phase 8's clouds fused
+    point-sharded and its frontiers raycast frontier-sharded against the
+    single-rank functions; the stage pipeline at bench width over 20 frames
+    against the sequential path; then two multihost processes and the
+    2-rank dry run. Returns the K1 / K2 launches of the pipeline's ranks."""
+    from fitslam_tpu_torch.models import slam_map as sm
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.ops import ba, lie, pgo, raycast
+    from fitslam_tpu_torch.ops import frontier as fx
+    from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.parallel import mesh as mesh_mod
+    from fitslam_tpu_torch.utils.transfer import upload
+
+    t_phase = time.monotonic()
+    slam = loop_run["slam"]
+    m, K, lcfg = slam.map, slam.K, slam.cfg.loop
+    cpu = torch.device("cpu")
+    m_cpu, K_cpu = _tree_to(m, cpu), _tree_to(K, cpu)
+    # the single-rank GBA on the same map, timed alike
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    wall = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        single, single_stats = sm.global_ba(m, K, iters=BA_ITERS)
+        _sync(dev)
+        wall.append(time.perf_counter() - t0)
+    single_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    single_ms = min(wall) / BA_ITERS * 1e3
+
+    # PGO: the loop closer's edge table on this map, padded to the ranks
+    K_cap = m.kf_valid.shape[0]
+    odo = pgo.odometry_edges(m.kf_T_cw, m.n_kf, K_cap - 1)
+    covis = pgo.covisibility_edges(m.kf_T_cw, m.kf_valid, m.obs_kf, m.obs_lm, m.obs_valid,
+                                   n_landmarks=m.lm_valid.shape[0],
+                                   max_edges=lcfg.covis_max_edges,
+                                   min_shared=lcfg.covis_min_shared)
+    loops = slam.loop_closer.loop_edges
+    tables = [odo, covis]
+    if loops:
+        tables.append(pgo.PoseGraphEdges(
+            upload([e[0] for e in loops], dev, torch.int32),
+            upload([e[1] for e in loops], dev, torch.int32),
+            lie.SE3(torch.stack([e[2].R for e in loops]), torch.stack([e[2].t for e in loops])),
+            upload([e[3] for e in loops], dev, torch.float32),
+            torch.ones(len(loops), dtype=torch.bool, device=dev)))
+    n_edges = sum(int(t.valid.shape[0]) for t in tables)
+    pad = -n_edges % 4
+    if pad:
+        tables.append(pgo.PoseGraphEdges(
+            torch.zeros(pad, dtype=torch.int32, device=dev),
+            torch.zeros(pad, dtype=torch.int32, device=dev), lie.SE3.identity((pad,), device=dev),
+            torch.ones(pad, device=dev), torch.zeros(pad, dtype=torch.bool, device=dev)))
+    edges = pgo.concat_edges(*tables)
+    # start PGO from the map's poses perturbed (seed 0), keyframe 0 held
+    rng = np.random.RandomState(0)
+    dx = upload((0.02 * rng.randn(K_cap, 6)).astype(np.float32), dev)
+    dx[0] = 0.0
+    T0 = lie.compose(lie.se3_exp(dx), m.kf_T_cw)
+    fixed = torch.arange(K_cap, device=dev) == 0
+    for _ in range(2):    # the second call is timed, as on the ranks
+        _sync(dev)
+        t0 = time.perf_counter()
+        T_single, chis_pgo_single = pgo.optimize_pose_graph(T0, m.kf_valid, edges, fixed,
+                                                            iters=lcfg.pgo_iters)
+        _sync(dev)
+    pgo_single_ms = (time.perf_counter() - t0) / lcfg.pgo_iters * 1e3
+
+    # fusion and raycast on phase 8's run
+    system = active_run["system"]
+    spec = gr.GridSpec2D(64, 0.25, -8.0, -8.0)
+    tcfg = system.cfg.traversability
+    kw = dict(max_slope=tcfg.max_slope, ground_clearance=tcfg.ground_clearance,
+              robot_height=tcfg.robot_height, security_distance=tcfg.security_distance)
+    kf, _ = system.kf_poses_world()
+    pts_w, ok = gr.cloud_points_world(system.clouds, kf)
+    grid_single = gr.stats_to_grid(spec, gr.cell_stats(spec, pts_w, ok), **kw)
+    occ = system.occupancy()
+    robot_xy = upload(np.asarray(active_run["robot"].xy, np.float32), dev)
+    fr = fx.extract_frontiers(spec, occ, robot_xy, spec.extent, max_frontiers=64)
+    ray_single = raycast.arrival_information(spec, occ, fr.goal_xy, fr.valid)
+
+    cfg = bench_config()
+    backend_kw = StereoSlam(cfg, dev).backend_kwargs()
+    seq_poses, seq_kf, seq_inl, seq_fps = _sequential_pipeline(dev, cfg, backend_kw)
+    rest = dict(pgo=_tree_to((T0, m.kf_valid, edges, fixed, lcfg.pgo_iters), cpu),
+                fusion=(spec, pts_w.cpu(), ok.cpu(), kw),
+                raycast=(spec, occ.cpu(), fr.goal_xy.cpu(), fr.valid.cpu()),
+                pipeline=(cfg, backend_kw))
+    runs = {}
+    for n in PARALLEL_RANKS:
+        t0 = time.monotonic()
+        runs[n] = mesh_mod.launch(_parallel_rank, n, n, m_cpu, K_cpu, BA_ITERS,
+                                  rest if n == 2 else None, backend="gloo", device=str(dev),
+                                  timeout=900)
+        runs[n][0]["launch_s"] = time.monotonic() - t0
+
+    # -- checks --
+    fails = []
+    single_np = (single.kf_T_cw.t.cpu(), single.kf_T_cw.R.cpu(), single.lm_pos.cpu())
+    val = m.lm_valid.cpu()
+    gba_lines = []
+    for n, res in runs.items():
+        g0 = res[0]["gba"]
+        for r in res[1:]:
+            if not (torch.equal(r["gba"]["map"].kf_T_cw.t, g0["map"].kf_T_cw.t)
+                    and torch.equal(r["gba"]["map"].lm_pos, g0["map"].lm_pos)):
+                fails.append(f"GBA over {n} ranks: rank {r['rank']} differs from rank 0")
+        d_t = float((g0["map"].kf_T_cw.t - single_np[0]).abs().max())
+        d_R = float((g0["map"].kf_T_cw.R - single_np[1]).abs().max())
+        d_p = float((g0["map"].lm_pos - single_np[2])[val].abs().max())
+        if max(d_t, d_R, d_p) > SHARDED_TOL:
+            fails.append(f"GBA over {n} ranks differs from global_ba: {d_t}, {d_R}, {d_p}")
+        if not all(r["gba"]["same"] for r in res):
+            fails.append(f"GBA over {n} ranks: two runs not bit-equal")
+        if g0["collectives"] != 6 * BA_ITERS + 1:
+            fails.append(f"GBA over {n} ranks: {g0['collectives']} collectives in "
+                         f"{BA_ITERS} iterations")
+        gba_lines.append(
+            f"{n} ranks: {g0['ms_iter']:.2f} ms an iteration ({g0['allreduce_ms_iter']:.2f} ms "
+            f"of it in its {g0['collectives']} collectives, timed pass), peak "
+            f"{max(r['gba']['peak_gb'] for r in res):.3f} GB a rank (Y {K_cap * m.lm_valid.shape[0] // n * 72 / 1e9:.3f} GB), "
+            f"two runs bit-equal {all(r['gba']['same'] for r in res)}, max |d| to global_ba "
+            f"t {d_t:.1e} m / R {d_R:.1e} / points {d_p:.1e} m, chi2 "
+            f"{float(g0['chis'][0]):.1f} -> {float(g0['chis'][-1]):.1f}, launch "
+            f"{res[0]['launch_s']:.1f} s")
+    two = runs[2]
+    r0 = two[0]
+    ob_single, ob_stats = ba.bundle_adjust(K, ba.BAProblem(
+        m.kf_T_cw, m.lm_pos, ba.Observations(m.obs_kf, m.obs_lm, m.obs_uvr, m.obs_sigma2,
+                                             m.obs_valid),
+        torch.logical_not(m.kf_valid) | (torch.arange(K_cap, device=dev) == 0),
+        torch.logical_not(m.lm_valid)), iters=PARALLEL_OBS_ITERS, damping=1e-3)
+    d_ob = max(float((r0["obs"]["T"].t - ob_single.T_cw.t.cpu()).abs().max()),
+               float((r0["obs"]["points"] - ob_single.points.cpu())[val].abs().max()))
+    if d_ob > SHARDED_TOL:
+        fails.append(f"observation-sharded BA differs from bundle_adjust by {d_ob}")
+    T_pgo, chis_pgo = r0["pgo"]
+    d_pgo = max(float((T_pgo.t - T_single.t.cpu()).abs().max()),
+                float((T_pgo.R - T_single.R.cpu()).abs().max()))
+    if d_pgo > PGO_TOL:
+        fails.append(f"distributed PGO differs from optimize_pose_graph by {d_pgo}")
+    g, gs = r0["grid"], _tree_to(grid_single, cpu)
+    fusion_exact = all(torch.equal(getattr(g, f), getattr(gs, f))
+                       for f in ("count", "z_min", "z_max", "cost"))
+    if not fusion_exact:
+        fails.append("sharded fusion: counts, z extrema or cost differ from the single rank's")
+    ray_exact = all(torch.equal(a, b.cpu()) for a, b in zip(r0["ray"], ray_single))
+    if not ray_exact:
+        fails.append("sharded raycast differs from the single rank's")
+    p0, p1 = (r["pipeline"] for r in two)
+    outs = p1["outs"]
+    d_pose = float((outs.pose_wc - seq_poses).abs().max())
+    if d_pose > PIPELINE_TOL or outs.was_keyframe.tolist() != seq_kf \
+            or outs.n_inliers.tolist() != seq_inl:
+        fails.append(f"stage pipeline differs from the sequential path: poses {d_pose}, "
+                     f"keyframes {outs.was_keyframe.tolist()} vs {seq_kf}, inliers "
+                     f"{outs.n_inliers.tolist()} vs {seq_inl}")
+    stage_counts = {k: p0["launches"][k] + p1["launches"][k] for k in p0["launches"]}
+    if p0["launches"]["describe"] != 2 * PIPELINE_FRAMES or p1["launches"]["describe"] \
+            or stage_counts["top2"] <= 0:
+        fails.append(f"stage pipeline launches: rank 0 {p0['launches']}, rank 1 "
+                     f"{p1['launches']}")
+    mh, dry_line, entry_s = _parallel_entry_points(dev)
+    if not (all(r["n_devices"] == 2 and r["chi2_last"] < 0.2 * r["chi2_first"] for r in mh)
+            and mh[0]["chi2_last"] == mh[1]["chi2_last"]):
+        fails.append(f"multihost results: {mh}")
+    log(f"[15 parallel] GBA landmark-sharded on the loop map ({K_cap} keyframes x "
+        f"{m.lm_valid.shape[0]} landmarks x {m.obs_valid.shape[0]} observations, {BA_ITERS} "
+        f"iterations, every rank on {dev} over gloo): global_ba on one rank "
+        f"{single_ms:.2f} ms an iteration, peak {single_peak:.3f} GB; " + "; ".join(gba_lines))
+    log(f"[15 parallel] observation-sharded BA (2 ranks, {PARALLEL_OBS_ITERS} iterations): "
+        f"{r0['obs']['ms_iter']:.2f} ms an iteration ({r0['obs']['allreduce_ms_iter']:.2f} ms "
+        f"in its all-reduces), max |d| to bundle_adjust {d_ob:.1e}; PGO edge-sharded over "
+        f"{edges.valid.shape[0]} edges ({int(edges.valid.sum())} valid), {lcfg.pgo_iters} "
+        f"iterations: {r0['pgo_ms_iter']:.2f} ms an iteration against {pgo_single_ms:.2f} on "
+        f"one rank, max |d| {d_pgo:.1e}, chi2 {float(chis_pgo[0]):.3e} -> "
+        f"{float(chis_pgo[-1]):.3e}; fusion of phase 8's {pts_w.shape[0]} cloud points: "
+        f"counts, z extrema and cost equal to one rank's {fusion_exact}; raycast of "
+        f"{fr.goal_xy.shape[0]} frontiers ({int(fr.valid.sum())} valid) exact {ray_exact}")
+    log(f"[15 parallel] stage pipeline at bench width ({PIPELINE_FRAMES} frames, frontend on "
+        f"rank 0, backend on rank 1, both on {dev}): {p0['fps']:.2f} frames/s against "
+        f"{seq_fps:.2f} sequential on one rank; max |d pose| {d_pose:.1e}, keyframes "
+        f"{sum(seq_kf)} and inliers equal {outs.was_keyframe.tolist() == seq_kf and outs.n_inliers.tolist() == seq_inl}; "
+        f"launches rank 0 {p0['launches']}, rank 1 {p1['launches']}; multihost (2 "
+        f"processes, gloo on {dev}): chi2 {mh[0]['chi2_first']:.1f} -> "
+        f"{mh[0]['chi2_last']:.4f}, {mh[0]['ba_iters_per_s']:.1f} iterations/s; {dry_line}; "
+        f"entry points {entry_s:.1f} s; phase {time.monotonic() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError("[15 parallel] " + "; ".join(fails))
+    return stage_counts
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -2995,6 +3428,7 @@ def main() -> int:
     paths["fleet"] = phase_fleet(dev)
     paths["fleet_slam"] = phase_fleet_slam(dev)
     paths["active_entry"], paths["vo"] = phase_entry(dev)
+    paths["stage"] = phase_parallel(dev, loop, active)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just

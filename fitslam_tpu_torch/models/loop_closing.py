@@ -159,6 +159,9 @@ class LoopCloser:
         # verification's inliers, so a weak edge pulls less on later PGOs
         self.loop_edges: List[Tuple[int, int, lie.SE3, float]] = []
         self.last_loop_kf = -(10 ** 9)
+        # a mesh of more than one rank (parallel/mesh.py) makes GBA run
+        # landmark-sharded over it; every rank then runs this closer alike
+        self.mesh = None
         # temporal consistency (ORB-SLAM3 mnCovisibilityConsistencyTh): the
         # same candidate region must recur on consecutive keyframes
         self._consist_cand = -(10 ** 9)
@@ -296,8 +299,12 @@ class LoopCloser:
         gba_chi2 = None
         if run_gba:
             self._last_gba_kf = kf_idx
-            m, gba_stats = sm.global_ba(m, self.K, iters=cfg.gba_iters)
-            gba_chi2 = gba_stats.chi2[-1]
+            if self.mesh is not None and self.mesh.devices.size > 1:
+                m, gba_chis = sm.global_ba_dist(m, self.K, self.mesh, iters=cfg.gba_iters)
+                gba_chi2 = gba_chis[-1]
+            else:
+                m, gba_stats = sm.global_ba(m, self.K, iters=cfg.gba_iters)
+                gba_chi2 = gba_stats.chi2[-1]
         slam.map = m
         # the current frame may be several frames past keyframe j (the poll
         # lags the camera), so the correction is composed, not imposed:

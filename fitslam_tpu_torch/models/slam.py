@@ -85,11 +85,11 @@ class StereoSlam:
                                fast_threshold=o.fast_threshold,
                                max_depth=self.cfg.camera.depth_max)
 
-    def _step(self, frame: tr.StereoFrame) -> StepOutputs:
+    def backend_kwargs(self) -> Dict:
+        """The backend step's settings from the config (``_backend_body``'s
+        keyword arguments)."""
         cfg = self.cfg
-        self.map, self.state, outs, inserted, syncs = _backend_body(
-            self.K, self.map, self.state, frame, self.frame_id,
-            initialized=self._track_initialized,
+        return dict(
             search_radius=cfg.tracking.search_radius_px,
             match_max_hamming=cfg.tracking.match_max_hamming,
             min_inliers=cfg.tracking.min_inliers,
@@ -114,6 +114,11 @@ class StereoSlam:
             max_spawn_depth=(cfg.camera.depth_max if cfg.camera.rgbd
                              else cfg.mapping.close_depth_factor * cfg.camera.baseline),
         )
+
+    def _step(self, frame: tr.StereoFrame) -> StepOutputs:
+        self.map, self.state, outs, inserted, syncs = _backend_body(
+            self.K, self.map, self.state, frame, self.frame_id,
+            initialized=self._track_initialized, **self.backend_kwargs())
         self.host_syncs += syncs
         self._track_initialized = self._track_initialized or inserted
         return outs
@@ -325,19 +330,26 @@ class StereoSlam:
         landmarks under the current poses breaks that, and GBA descends.
         Call it at mission end, at idle time or after the last expected loop.
         The tracker is re-based by delta composition, as after a loop
-        correction. Returns the last cycle's GBA chi2 (device scalar)."""
+        correction. With a mesh of more than one rank on the loop closer, GBA
+        runs landmark-sharded over it (``slam_map.global_ba_dist``). Returns
+        the last cycle's GBA chi2 (device scalar)."""
         m = self.map
         j = max(int(m.n_kf) - 1, 0)
         self.host_syncs += 1
         T_j_old = lie.SE3(m.kf_T_cw.R[j], m.kf_T_cw.t[j])
+        mesh = getattr(self.loop_closer, "mesh", None)
         chi2 = None
         for _ in range(cycles):
             obs = ba.Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr,
                                   sigma2=m.obs_sigma2, valid=m.obs_valid)
             m = m._replace(lm_pos=ba.retriangulate_points(
                 self.K, m.kf_T_cw, m.lm_pos, obs, m.lm_valid, stereo_weight=stereo_weight))
-            m, stats = sm.global_ba(m, self.K, iters=gba_iters)
-            chi2 = stats.chi2[-1]
+            if mesh is not None and mesh.devices.size > 1:
+                m, chis = sm.global_ba_dist(m, self.K, mesh, iters=gba_iters)
+                chi2 = chis[-1]
+            else:
+                m, stats = sm.global_ba(m, self.K, iters=gba_iters)
+                chi2 = stats.chi2[-1]
         self.map = m
         T_j_new = lie.SE3(m.kf_T_cw.R[j], m.kf_T_cw.t[j])
         T_cur = lie.compose(lie.compose(self.state.T_cw, lie.inverse(T_j_old)), T_j_new)

@@ -472,6 +472,32 @@ def local_ba(m: SlamMap, K: Intrinsics, window: int = 8, max_obs_local: int = 81
                                                 p_anchor, m.lm_pos_anchor))
 
 
+def _write_back(m: SlamMap, out: BAProblem) -> SlamMap:
+    """A BA's poses (valid keyframes) and points (valid landmarks) into the
+    map, then the anchor-frame positions refreshed: every anchor may have
+    moved."""
+    keep = m.kf_valid[:, None]
+    m = m._replace(
+        kf_T_cw=lie.SE3(torch.where(keep[..., None], out.T_cw.R, m.kf_T_cw.R),
+                        torch.where(keep, out.T_cw.t, m.kf_T_cw.t)),
+        lm_pos=torch.where(m.lm_valid[:, None], out.points, m.lm_pos),
+    )
+    a = m.lm_anchor_kf.long()
+    p_anchor = (m.kf_T_cw.R[a] @ m.lm_pos[..., :, None])[..., 0] + m.kf_T_cw.t[a]
+    return m._replace(lm_pos_anchor=torch.where(m.lm_valid[:, None], p_anchor,
+                                                m.lm_pos_anchor))
+
+
+def _global_problem(m: SlamMap) -> BAProblem:
+    """The whole map as one BA problem: keyframe 0 holds the gauge."""
+    K_cap = m.kf_valid.shape[0]
+    obs = Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr, sigma2=m.obs_sigma2,
+                       valid=m.obs_valid)
+    fixed_kf = torch.logical_not(m.kf_valid) | (torch.arange(K_cap, device=m.kf_valid.device) == 0)
+    return BAProblem(T_cw=m.kf_T_cw, points=m.lm_pos, obs=obs, fixed_kf=fixed_kf,
+                     fixed_lm=torch.logical_not(m.lm_valid))
+
+
 def global_ba(m: SlamMap, K: Intrinsics, iters: int = 8):
     """Global bundle adjustment over the whole map: every valid keyframe
     (keyframe 0 holds the gauge) and every valid landmark against the whole
@@ -479,21 +505,21 @@ def global_ba(m: SlamMap, K: Intrinsics, iters: int = 8):
     §3.4), then the anchor-frame positions refreshed. At 128 keyframes and
     20480 landmarks the dense coupling blocks Y and Y·Hll^-1 are (128, 20480,
     6, 3) float32, 189 MB each. Returns (map, BAStats)."""
-    K_cap = m.kf_valid.shape[0]
-    obs = Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr, sigma2=m.obs_sigma2,
-                       valid=m.obs_valid)
-    fixed_kf = torch.logical_not(m.kf_valid) | (torch.arange(K_cap, device=m.kf_valid.device) == 0)
-    prob = BAProblem(T_cw=m.kf_T_cw, points=m.lm_pos, obs=obs, fixed_kf=fixed_kf,
-                     fixed_lm=torch.logical_not(m.lm_valid))
-    out, stats = bundle_adjust(K, prob, iters=iters, damping=1e-3)
-    keep = m.kf_valid[:, None]
-    m = m._replace(
-        kf_T_cw=lie.SE3(torch.where(keep[..., None], out.T_cw.R, m.kf_T_cw.R),
-                        torch.where(keep, out.T_cw.t, m.kf_T_cw.t)),
-        lm_pos=torch.where(m.lm_valid[:, None], out.points, m.lm_pos),
-    )
-    # every anchor may have moved
-    a = m.lm_anchor_kf.long()
-    p_anchor = (m.kf_T_cw.R[a] @ m.lm_pos[..., :, None])[..., 0] + m.kf_T_cw.t[a]
-    return m._replace(lm_pos_anchor=torch.where(m.lm_valid[:, None], p_anchor,
-                                                m.lm_pos_anchor)), stats
+    out, stats = bundle_adjust(K, _global_problem(m), iters=iters, damping=1e-3)
+    return _write_back(m, out), stats
+
+
+def global_ba_dist(m: SlamMap, K: Intrinsics, mesh, iters: int = 8):
+    """Global BA with the landmark-sharded solver of ``parallel/dist_ba.py``
+    over a mesh of ranks: landmarks, their Hll blocks and the (K, L/n, 6, 3)
+    coupling tensor are split over the ranks; only pose-side terms cross
+    them. Every rank calls it with the same map. The observations are routed
+    to their landmark's owner on the host (GBA runs at loop closure, rarely).
+    Returns (map, chi2 history) on every rank; the write-back mirrors
+    ``global_ba``."""
+    from fitslam_tpu_torch.parallel import dist_ba
+
+    packed = dist_ba.shard_problem_by_landmark(_global_problem(m), mesh.devices.size)
+    out, chis = dist_ba.landmark_sharded_bundle_adjust(mesh, K, packed, iters=iters,
+                                                       damping=1e-3)
+    return _write_back(m, out), chis

@@ -26,6 +26,8 @@ from fitslam_tpu_torch.ops.numerics import SegmentPlan, segment_plan, segment_su
 # the reference computes these thresholds as float32 square roots on device
 _SQRT_CHI2_STEREO = float(np.sqrt(np.float32(7.815)))
 _SQRT_CHI2_MONO = float(np.sqrt(np.float32(5.991)))
+# the robust chi2 caps each observation's term at four times the stereo gate
+CHI2_CAP = 7.815 * 4
 
 
 class Observations(NamedTuple):
@@ -140,7 +142,7 @@ def chi2_residuals(K: Intrinsics, T_cw: lie.SE3, points: torch.Tensor,
     ok = obs.valid & z_ok
     inv_sigma2 = torch.where(ok, 1.0 / obs.sigma2, torch.zeros_like(obs.sigma2))
     chi2 = torch.sum(res * res, dim=-1) * inv_sigma2
-    return torch.sum(torch.where(ok, torch.clamp(chi2, max=7.815 * 4), torch.zeros_like(chi2)))
+    return robust_chi2(ok, chi2)
 
 
 class SumPlans(NamedTuple):
@@ -158,14 +160,13 @@ def sum_plans(obs: Observations, K_n: int, L_n: int) -> SumPlans:
                     segment_plan(kf * L_n + lm, K_n * L_n))
 
 
-def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float,
-                 plans: SumPlans):
-    """One Gauss-Newton step via Schur complement.
-    Returns (delta_pose (K, 6), delta_point (L, 3))."""
+def schur_blocks(prob: BAProblem, res, J_pose, J_point, w, plans: SumPlans):
+    """The normal equations' blocks of one linearization, each a fixed-order
+    segment sum: (Hpp (K, 6, 6), Hll (L, 3, 3), bp (K, 6), bl (L, 3), the
+    pose-landmark coupling Y (K, L, 6, 3))."""
     K_n = prob.T_cw.t.shape[0]
     L_n = prob.points.shape[0]
     obs = prob.obs
-    dev = res.device
 
     Jp_w = J_pose * w[:, None, None]     # (O, 3, 6)
     Jl_w = J_point * w[:, None, None]    # (O, 3, 3)
@@ -177,6 +178,19 @@ def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float,
 
     Hpl_o = torch.einsum("oij,oik->ojk", Jp_w, J_point)   # (O, 6, 3)
     Y = segment_sum_fixed(Hpl_o, None, K_n * L_n, plans.block).reshape(K_n, L_n, 6, 3)
+    return Hpp, Hll, bp, bl, Y
+
+
+def reduced_step(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, blocks, damping: float,
+                 reduce=None):
+    """One Gauss-Newton step via Schur complement from the blocks (Hpp, Hll,
+    bp, bl, Y). ``reduce``, where given, sums the Schur complement's two
+    landmark terms over the ranks that hold the other landmarks (the
+    landmark-sharded BA of ``parallel/dist_ba.py``).
+    Returns (delta_pose (K, 6), delta_point (L, 3))."""
+    Hpp, Hll, bp, bl, Y = blocks[:5]
+    K_n = Hpp.shape[0]
+    dev = Hpp.device
 
     eye3 = torch.eye(3, dtype=Hll.dtype, device=dev)
     diag_l = torch.einsum("lii->l", Hll)[:, None, None] / 3.0
@@ -185,19 +199,23 @@ def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float,
     Hll_d = torch.where(empty_lm[:, None, None], eye3, Hll_d)
     Hll_inv = inv3x3(Hll_d)
     Hll_inv = torch.where(empty_lm[:, None, None], torch.zeros_like(eye3), Hll_inv)
-    lm_free = torch.logical_not(prob.fixed_lm)
+    lm_free = torch.logical_not(fixed_lm)
     Hll_inv = Hll_inv * lm_free[:, None, None]
 
     YHinv = torch.einsum("klij,ljm->klim", Y, Hll_inv)        # (K, L, 6, 3)
-    S = -torch.einsum("alim,bljm->abij", YHinv, Y)            # (K, K, 6, 6)
+    S_l = torch.einsum("alim,bljm->abij", YHinv, Y)           # (K, K, 6, 6)
+    b_l = torch.einsum("klim,lm->ki", YHinv, bl)               # (K, 6)
+    if reduce is not None:
+        S_l, b_l = reduce(S_l), reduce(b_l)
+    S = -S_l
     diag = torch.arange(K_n, device=dev)
     S[diag, diag] = S[diag, diag] + Hpp
-    b_schur = bp - torch.einsum("klim,lm->ki", YHinv, bl)     # (K, 6)
+    b_schur = bp - b_l
 
-    free = torch.logical_not(prob.fixed_kf).to(S.dtype)
+    free = torch.logical_not(fixed_kf).to(S.dtype)
     S = S * free[:, None, None, None] * free[None, :, None, None]
     eye6 = torch.eye(6, dtype=S.dtype, device=dev)
-    S[diag, diag] = S[diag, diag] + eye6 * prob.fixed_kf.to(S.dtype)[:, None, None]
+    S[diag, diag] = S[diag, diag] + eye6 * fixed_kf.to(S.dtype)[:, None, None]
     b_schur = b_schur * free[:, None]
     S[diag, diag] = S[diag, diag] + eye6 * damping
 
@@ -208,7 +226,7 @@ def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float,
     Yt_dp = torch.einsum("klim,ki->lm", Y, dp)               # (L, 3)
     dl = torch.einsum("lij,lj->li", Hll_inv, bl - Yt_dp)
     dl = dl * lm_free[:, None]
-    dp = dp * torch.logical_not(prob.fixed_kf)[:, None]
+    dp = dp * torch.logical_not(fixed_kf)[:, None]
 
     dp_n = torch.linalg.norm(dp, dim=-1, keepdim=True)
     dp = dp * torch.clamp(0.5 / torch.clamp(dp_n, min=1e-12), max=1.0)
@@ -217,8 +235,9 @@ def _schur_solve(prob: BAProblem, res, J_pose, J_point, w, damping: float,
     return dp, dl
 
 
-def _robust_chi2(ok, chi2, cap):
-    return torch.sum(torch.where(ok, torch.clamp(chi2, max=cap), torch.zeros_like(chi2)))
+def robust_chi2(ok, chi2):
+    """The sum of the valid observations' chi2, each capped at ``CHI2_CAP``."""
+    return torch.sum(torch.where(ok, torch.clamp(chi2, max=CHI2_CAP), torch.zeros_like(chi2)))
 
 
 def _select(accept, a, b):
@@ -239,12 +258,13 @@ def bundle_adjust(K: Intrinsics, prob: BAProblem, iters: int = 6,
     for _ in range(iters):
         res, J_pose, J_point, w, ok, chi2 = linearize(K, p)
         w = torch.where(ok, w, torch.zeros_like(w))
-        dp, dl = _schur_solve(p, res, J_pose, J_point, w, damping, plans)
+        blocks = schur_blocks(p, res, J_pose, J_point, w, plans)
+        dp, dl = reduced_step(p.fixed_kf, p.fixed_lm, blocks, damping)
         T_new = lie.compose(lie.se3_exp(dp), p.T_cw)
         cand = p._replace(T_cw=T_new, points=p.points + dl)
-        c_old = _robust_chi2(ok, chi2, 7.815 * 4)
+        c_old = robust_chi2(ok, chi2)
         _, _, _, _, ok_new, chi2_new = linearize(K, cand)
-        c_new = _robust_chi2(ok_new, chi2_new, 7.815 * 4)
+        c_new = robust_chi2(ok_new, chi2_new)
         accept = torch.isfinite(c_new) & (c_new < c_old)
         p = p._replace(T_cw=_select(accept, cand.T_cw, p.T_cw),
                        points=torch.where(accept, cand.points, p.points))

@@ -80,6 +80,15 @@ def pack_descriptors(desc: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32).contiguous()
 
 
+def unpack_descriptors(packed: torch.Tensor) -> torch.Tensor:
+    """(N, 8) packed words (int32 as ``pack_descriptors`` stores them, or the
+    reference's uint32 values) -> (N, 256) ±1 bfloat16."""
+    words = packed.long() & 0xFFFFFFFF
+    shifts = torch.arange(32, device=packed.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(packed.shape[0], 256).to(torch.bfloat16) * 2 - 1
+
+
 # ---------------------------------------------------------------------------
 # BRIEF pattern and constant matrices (regenerated with the reference's numpy
 # code; tests/test_torch_orb.py asserts they are equal)

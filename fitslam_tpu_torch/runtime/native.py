@@ -26,6 +26,13 @@ from fitslam_tpu_torch.utils.cuda_build import build_host_library
 _lib: Optional[ctypes.CDLL] = None
 
 
+def ensure_built() -> bool:
+    """Build the native library if it is not built yet. Returns True; a
+    failed build raises RuntimeError with g++'s output (nothing falls back)."""
+    build_host_library()
+    return True
+
+
 def load_library() -> ctypes.CDLL:
     """The native runtime, built on first use; raises RuntimeError with the
     compiler's output when the build fails."""

@@ -4,7 +4,8 @@
 ``FrameFeatures``, ``StereoFrame``, ``TrackState``, ``SlamMap``,
 ``Observations``, ``BAProblem``, ``Matches``, ``Frontiers``,
 ``FrontierCosts``, ``PathPlan``, ``Roadmap``, ``CloudBuffer``,
-``TraversabilityGrid``, ``World``, ``EkfState``, ``MeasurementBatch``),
+``TraversabilityGrid``, ``World``, ``EkfState``, ``MeasurementBatch``,
+``PoseGraphEdges``),
 given with numpy leaves, into the port's
 NamedTuple of tensors on a device; ``to_numpy`` turns a port NamedTuple back
 into the same structure with numpy leaves. A plain tuple or list (the cell
@@ -43,12 +44,14 @@ from fitslam_tpu_torch.ops.grid import CloudBuffer, GridSpec2D, TraversabilityGr
 from fitslam_tpu_torch.ops.lie import SE3
 from fitslam_tpu_torch.ops.matching import Matches
 from fitslam_tpu_torch.ops.orb import FrameFeatures
+from fitslam_tpu_torch.ops.pgo import PoseGraphEdges
 
 PORT_TYPES: Dict[str, Type] = {
     cls.__name__: cls
     for cls in (SE3, Intrinsics, FrameFeatures, StereoFrame, TrackState, SlamMap,
                 Observations, BAProblem, Matches, Frontiers, FrontierCosts, PathPlan,
-                Roadmap, CloudBuffer, TraversabilityGrid, World, EkfState, MeasurementBatch)
+                Roadmap, CloudBuffer, TraversabilityGrid, World, EkfState, MeasurementBatch,
+                PoseGraphEdges)
 }
 
 
