@@ -24,12 +24,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      several column splits;
   4. golden replay of tests/data/corridor_seq through StereoSlam.process_frame:
      ATE <= 0.025 m, 10-30 keyframes, the fused describe and K2 launched;
-  5. bench size (640x480, 4 levels, 1024 features, 8192 landmarks, 60 frames
-     rendered on the card from tests/data/bench_corridor_world.npz) through
-     process_frame_async + finalize: one untimed pass, then three timed passes,
-     each held to ATE <= 0.025 m and 2 fused-describe launches per frame
-     (one per eye, no standalone gather); the descriptor bits in which the
-     fused kernel and the parent's describe path differ on the 120 images;
+  5. the headline (fitslam_tpu_torch/bench.py: its configuration, 640x480,
+     4 levels, 1024 features, 8192 landmarks, its 60 frames rendered on the
+     card, its timed pass): one untimed pass, then three timed passes and
+     finalize, each held to ATE <= 0.025 m and 2 fused-describe launches per
+     frame (one per eye, no standalone gather); the descriptor bits in which
+     the fused kernel and the parent's describe path differ on the 120 images;
   6. K3 (wavefront sweeps) against its plain twin at (G, iters) = (64, 192),
      (320, 512) and (512, 512), on random step costs and on a rooms-world
      maze, through the kernel its size rule picks and through the tiled
@@ -121,11 +121,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
      on rank 0, frames/s of both); two ``python -m
      fitslam_tpu_torch.parallel.multihost`` processes and ``python -m
      fitslam_tpu_torch.parallel.dryrun 2``.
+ 16. (ten lines) the measurement entry points: ``python -m
+     fitslam_tpu_torch.bench`` as a subprocess (exit 0, one JSON line with
+     the reference's keys, ATE <= 0.025 m, a loop closed in its loop_slam
+     block; frames/s beside phase 5's), ``python -m
+     fitslam_tpu_torch.bench_suite --mode ba`` as a subprocess, the scaling
+     and kernels modes in full and rgbd_fusion, active_slam, marsyard and
+     ablation at full width and cut depth in this process (each record's
+     keys the reference's, platform gpu, the modes' K1/K2/K3 launches
+     counted, the reference's committed artifacts byte-identical after),
+     then graft_entry.entry()'s step on the card against the CPU's (F5's
+     tolerances; 2 describes and K2 a step).
+Phases 5, 7, 8, 10 and 12 drive the bench's own loops (bench.timed_pass,
+bench_suite.explore_run, active_loop and ring_run) and measure them through
+the loops' ``window`` hook, so the loop a mode times is the loop a phase
+holds to its bounds.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
 pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
 gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
-loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, and stage: the
-pipeline's ranks summed), error, device times
+loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, stage: the
+pipeline's ranks summed, bench_modes: phase 16's in-process modes, and
+graft_step: one entry() step), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -162,6 +178,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the smoke run and the bench time and bound kernels in one way, build
+# the same configurations, and the phases drive the bench's own loops, their
+# windows measured through the loops' ``window`` hook
+from fitslam_tpu_torch.bench import headline_config, headline_frames, timed_pass
+from fitslam_tpu_torch.bench_suite import (ABLATION_METHODS, ABLATION_SPEC, ABLATION_START, EDGE,
+                                           TICK_EVERY, ablation_config, active_config,
+                                           active_loop, active_system, ate_world, bound,
+                                           camera_matrices, cuda_time_ms, describe_bytes_ops,
+                                           explore_run, k2_bytes, lethal_scores, loop_config,
+                                           ring_run, rooms_world)
+
 ROOT = Path(__file__).resolve().parent
 ATE_BOUND_M = 0.025
 GOLDEN_KF_RANGE = (10, 30)
@@ -192,21 +219,11 @@ EXPLORE_STEPS = 300
 # features at 640x480) and the golden replay's 2 (512 features at 320x240)
 BENCH_LEVELS = (((480, 640), 546), ((336, 448), 273), ((240, 320), 137), ((168, 224), 68))
 GOLDEN_LEVELS = (((240, 320), 341), ((168, 224), 171))
-EDGE = 16  # ops/orb.py's border margin: no keypoint is extracted closer to the edge
 PROFILE_FRAMES = (20, 40)  # bench frames that --profile traces
 PROFILE_WINDOW = (120, 160)  # steps of the G = 320 loop that --profile traces
-# NVIDIA's published peaks of one H100 SXM at its 700 W limit (dense): a
-# kernel's bound is the larger of its bytes (each input read once, each output
-# written once) over the memory rate and its operations over their type's rate
-# (the float32 rate counts an FMA as two operations: instructions that do one,
-# as K3's adds and mins do, issue at no more than half of it)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
-# bench_suite.py::bench_ablation's three cost methods, and the final
-# coverage of each at step 299 in the reference's own run (the last row of
+# the final coverage of each of bench_suite.py::bench_ablation's three cost
+# methods at step 299 in the reference's own run (the last row of
 # ABLATION_COVERAGE.csv), printed beside the port's and not asserted
-ABLATION_METHODS = {"arrival_info_roadmap": ("ArrivalInformation", "RoadmapPlannerDistance"),
-                    "random": ("RandomCosts",), "closest": ("ClosestFrontier",)}
 REFERENCE_ABLATION_COVERAGE = {"arrival_info_roadmap": 0.9302, "random": 0.9282,
                                "closest": 0.9302}
 # the reference's RandomCosts draws (jax.random) for ticks 0-150 at F = 64
@@ -217,10 +234,9 @@ RANDOM_COSTS_DRAWS = ROOT / "tests" / "data" / "random_costs_draws.npz"
 # belong to that length; its figures at frame 80 stand beside the reference's.
 ACTIVE_BENCH_FRAMES = 80
 ACTIVE_FRAMES = 150
-ACTIVE_TICK_EVERY = 4
-# the windows of a step of the active loop: the frame, the tick (every
-# ACTIVE_TICK_EVERY frames), the controller step and, with the EKF on, the
-# read of its estimate
+# the windows of a step of bench_suite.active_loop: the frame, the tick (every
+# TICK_EVERY frames), the controller step and, with the EKF on, the read of
+# its estimate
 WINDOWS = ("frame", "tick", "ctrl", "pose")
 MARSYARD_FRAMES = 150
 RGBD_FRAMES = 40
@@ -246,7 +262,6 @@ FLEET_SLAM_STEPS = 100
 # frames, the committed worlds of seeds 1-3, a pipelined poll every 4 frames)
 LOOP_FRAMES = 150
 LOOP_SEEDS = (1, 2, 3)
-LOOP_POLL = 4
 # K2's loop-verification call: a keyframe's 1024 features against the whole
 # landmark table, and a ragged shape
 LOOP_K2_SHAPES = ((1024, 20480), (1000, 20001))
@@ -269,31 +284,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 50, warmup: int = 5):
-    """(device ms, wall ms) per call of fn().
-
-    Device: CUDA events around ``reps`` calls queued behind a ~0.1 s device
-    spin, so the device runs them back to back however long the host takes
-    to enqueue them. Wall: the host clock around ``reps`` calls and a
-    synchronize, i.e. the larger of the host's and the device's cost."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, wall_ms
-
-
 def kernel_sum(fn, reps: int = 10):
     """(device ms, kernel launches) a call of fn(), summed over the kernels
     that a torch.profiler window of ``reps`` calls records: the device's own
@@ -311,16 +301,6 @@ def kernel_sum(fn, reps: int = 10):
 
 def _us(t) -> str:
     return f"{t[0] * 1e3:.1f} us device / {t[1] * 1e3:.1f} us wall"
-
-
-def bound(n_bytes: float, n_ops: float = 0.0, op_type: str = "f32") -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the peak of their type, whichever is larger."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
-    if by_bytes >= by_ops:
-        return {"bound_ms": by_bytes, "bound_by": "bytes"}
-    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 def phase_environment():
@@ -454,16 +434,6 @@ def parent_constants(dev):
             torch.as_tensor(orb._ROTATED_PAIRS, device=dev))
 
 
-def describe_bytes_ops(levels, n):
-    """Bytes (level images, keypoints, angle and bf16 descriptor out) and
-    operations a call of the fused describe must do: per keypoint the blur's
-    products and adds (40x32 + 32x32 outputs of 7 taps), its two bf16
-    roundings, the moments' products and adds and the 256 bit tests."""
-    n_bytes = sum(h * w * 4 for (h, w), _ in levels) + n * 8 + n * (4 + 256 * 2)
-    per_kp = (40 * 32 + 32 * 32) * 13 + (40 * 40 + 32 * 32) + 4 * 1024 + 256
-    return n_bytes, n * per_kp
-
-
 def phase_describe(dev):
     from fitslam_tpu_torch.ops import orb
 
@@ -585,13 +555,6 @@ def _k2_problem(dev, na=1024, nb=8192):
                 xy_a=t(xy_a), xy_b=t(xy_b), level_a=t(lvl_a), level_b=t(lvl_b))
 
 
-def _k2_bytes(na, nb, mode):
-    """Bytes K2 must move: packed descriptors, validity, positions (gated
-    modes), levels (stereo), the gate, and the four outputs."""
-    per_row = 32 + 1 + (8 if mode else 0) + (4 if mode == 2 else 0)
-    return (na + nb) * per_row + (8 if mode else 0) + 3 * 4 * na + 4 * nb
-
-
 def phase_k2(dev):
     from fitslam_tpu_torch.ops import pallas_matching as pm
 
@@ -662,8 +625,8 @@ def phase_k2(dev):
         b_pm1 = pm._unpack_pm1(p["b_bits"]).to(torch.bfloat16).T.contiguous()
         lib_at[shape] = cuda_time_ms(lambda: torch.matmul(a_pm1, b_pm1))
     lib, lib_st = lib_at[1024, 8192], lib_at[1024, 1024]
-    b_win = bound(_k2_bytes(1024, 8192, pm.GATE_WINDOW), 2 * 1024 * 8192 * 256, "int8")
-    b_st = bound(_k2_bytes(1024, 1024, pm.GATE_STEREO), 2 * 1024 * 1024 * 256, "int8")
+    b_win = bound(k2_bytes(1024, 8192, pm.GATE_WINDOW), 2 * 1024 * 8192 * 256, "int8")
+    b_st = bound(k2_bytes(1024, 1024, pm.GATE_STEREO), 2 * 1024 * 1024 * 256, "int8")
     label = {pm.DEFAULT_DESIGN: " (shipped)"}
     parts = "; ".join(
         f"{name} {'x'.join(map(str, shape))}: " + ", ".join(
@@ -761,43 +724,12 @@ def phase_golden(dev):
 
 
 def bench_config():
-    from fitslam_tpu_torch.utils.config import FitSlamConfig
-
-    W, H = 640, 480
-    cfg = FitSlamConfig()
+    """The headline configuration without loop closing and relocalization,
+    which phase 15's stage pipeline does not run."""
+    cfg = headline_config()
     return dataclasses.replace(
-        cfg,
-        camera=dataclasses.replace(cfg.camera, width=W, height=H, fx=0.625 * W, fy=0.625 * W,
-                                   cx=W / 2, cy=H / 2, baseline=0.2),
-        orb=dataclasses.replace(cfg.orb, num_features=1024, num_levels=4, fast_threshold=12.0),
-        tracking=dataclasses.replace(cfg.tracking, min_inliers=12, keyframe_min_interval=2,
-                                     keyframe_translation=0.75, reloc_enabled=False),
-        mapping=dataclasses.replace(cfg.mapping, max_keyframes=64, max_landmarks=8192,
-                                    max_observations=32768, local_window=6, ba_iters=3),
-        loop=dataclasses.replace(cfg.loop, enabled=False),
-    )
-
-
-def bench_frames(dev, cfg, n=None):
-    """The bench's first ``n`` (N_BENCH_FRAMES) stereo pairs, rendered on the
-    card, and the ground-truth camera poses as float64 matrices."""
-    from fitslam_tpu_torch.data import synthetic
-    from fitslam_tpu_torch.ops import lie
-    from fitslam_tpu_torch.ops.geometry import Intrinsics
-
-    W, H = cfg.camera.width, cfg.camera.height
-    K = Intrinsics.from_config(cfg.camera, dev)
-    # bench.py's corridor world, read from its file so that --tree can profile a
-    # package of any age (phase 14 draws it again through utils/prng.py)
-    world = torch.as_tensor(np.load(ROOT / "tests" / "data" / "bench_corridor_world.npz")
-                            ["landmarks"], device=dev)
-    T_gt = synthetic.straight_trajectory(N_BENCH_FRAMES, length=N_BENCH_FRAMES * 0.15,
-                                         height=1.2, start_x=0.5, device=dev)
-    frames = [synthetic.render_stereo(K, world, lie.SE3(T_gt.R[i], T_gt.t[i]), width=W, height=H)
-              for i in range(n or N_BENCH_FRAMES)]
-    gt = [m.cpu().numpy().astype(np.float64) for m in T_gt.matrix()]
-    torch.cuda.synchronize()
-    return K, frames, gt
+        cfg, tracking=dataclasses.replace(cfg.tracking, reloc_enabled=False),
+        loop=dataclasses.replace(cfg.loop, enabled=False))
 
 
 def _describe_calls(frames, o):
@@ -829,11 +761,13 @@ def phase_bench(dev):
     from fitslam_tpu_torch.models import tracking as tr
     from fitslam_tpu_torch.models.slam import StereoSlam
     from fitslam_tpu_torch.ops import orb
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
     from fitslam_tpu_torch.utils import evaluation as ev
 
-    cfg = bench_config()
+    cfg = headline_config()
     W, H = cfg.camera.width, cfg.camera.height
-    K, frames, gt = bench_frames(dev, cfg)
+    K = Intrinsics.from_config(cfg.camera, dev)
+    frames, gt = headline_frames(cfg, dev)
 
     # untimed pass: first calls, and torch's own count of synchronising calls
     warm = StereoSlam(cfg, dev)
@@ -841,9 +775,7 @@ def phase_bench(dev):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            for l, r in frames:
-                warm.process_frame_async(l, r)
-            torch.cuda.synchronize()
+            timed_pass(warm, frames, dev)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch_syncs = sum("synchroniz" in str(w.message) for w in caught)
@@ -872,18 +804,13 @@ def phase_bench(dev):
         n_kp += xy.shape[0]
         d_ang = max(d_ang, (fa - pa).abs().max().item())
 
-    # timed passes: the host clock varies between passes (the step is
-    # host-bound), so every pass is reported
+    # timed passes of the headline (bench.timed_pass): the host clock varies
+    # between passes (the step is host-bound), so every pass is reported
     fps = []
     for _ in range(N_TIMED_PASSES):
         slam = StereoSlam(cfg, dev)
         _reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        for l, r in frames:
-            slam.process_frame_async(l, r)
-        torch.cuda.synchronize()
-        fps.append(N_BENCH_FRAMES / (time.monotonic() - t0))
+        fps.append(timed_pass(slam, frames, dev))
         n = _counts()
         syncs = slam.host_syncs
         stats = slam.finalize()
@@ -907,7 +834,7 @@ def phase_bench(dev):
         f"K2 {n['top2'] / N_BENCH_FRAMES:.2f} launches/frame; fused vs the parent's describe "
         f"path on the {2 * N_BENCH_FRAMES} images: {bits} of {n_kp * 256} descriptor bits in "
         f"{rows} of {n_kp} descriptors differ, max |d angle| {d_ang:.1e} rad")
-    return n
+    return n, fps
 
 
 def _k3_problems(G):
@@ -1077,95 +1004,55 @@ def _torch_syncs(tally: dict, key: str, sites: Counter = None):
 
 
 def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None):
-    """The loop of tests/test_exploration_e2e.py through the port: reveal
-    (3 m), a tick every second step, 4 controller steps per step. Returns a
-    dict of what the run measured. With ``profile_window`` = (first, end) a
-    ``torch.profiler`` traces steps first..end-1 (returned as ``prof``, with
-    the window's host seconds as ``window_s``) and the run stops there."""
+    """bench_suite.explore_run (the ablation mode's loop, that of
+    tests/test_exploration_e2e.py) measured through its windows: calls, host
+    seconds, K3 launches and torch's count of host syncs of the ticks and of
+    the controller steps. Returns a dict of what the run measured. With
+    ``profile_window`` = (first, end) the run stops at step ``end`` and a
+    ``torch.profiler`` traces steps first..end-1 from the first window of
+    step ``first`` on (returned as ``prof``, with the window's host seconds as
+    ``window_s``)."""
     from fitslam_tpu_torch.models import sim_robot as sim
-    from fitslam_tpu_torch.models.exploration import ExplorationServer, ExplorationState
-    from fitslam_tpu_torch.models.sim_nav import SimNavInterface
     from fitslam_tpu_torch.ops.grid import UNKNOWN
-    from fitslam_tpu_torch.utils.transfer import upload
 
-    gt = torch.as_tensor(sim.make_rooms_world(spec, seed=1), device=dev)
-    state = {"explored": torch.full((spec.size, spec.size), UNKNOWN, dtype=torch.uint8,
-                                    device=dev)}
-    robot = sim.DiffDriveRobot(x=start_xy[0], y=start_xy[1], yaw=0.0, v_max=1.2, w_max=2.5)
-    nav = SimNavInterface(cfg, spec, robot, lambda: state["explored"], dt=0.15, device=dev)
-    nav.controller.max_omega = 2.0
-    server = ExplorationServer(cfg, spec, lambda: state["explored"], nav,
-                               get_robot_pose=lambda: (robot.xy, robot.yaw), device=dev)
-    coverage = torch.zeros(n_steps, device=dev)
     # per window (tick / controller): calls, seconds, K3 launches, torch syncs
     r = {f"{w}_{k}": 0 for w in ("tick", "ctrl") for k in ("n", "s", "k3", "torch_syncs")}
-    _reset_counts()
-    steps, prof = 0, None
-    for step in range(n_steps):
-        if profile_window and step == profile_window[0]:
+
+    def window(w, step, fn):
+        if profile_window and step == profile_window[0] and "prof" not in r:
             torch.cuda.synchronize()
-            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                      torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
+            r["prof"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                           torch.profiler.ProfilerActivity.CUDA])
+            r["prof"].__enter__()
             r["window_s"] = time.perf_counter()
-        if profile_window and step == profile_window[1]:
-            torch.cuda.synchronize()
-            r["window_s"] = time.perf_counter() - r["window_s"]
-            prof.__exit__(None, None, None)
-            r["prof"] = prof
-            break
-        state["explored"] = sim.reveal_sensor(
-            spec, gt, state["explored"], upload(np.asarray(robot.xy, np.float32), dev),
-            range_m=3.0)
-        done = False
-        for w in ("tick", "ctrl"):
-            if (w == "tick" and step % 2) or done:
-                continue
-            torch.cuda.synchronize()
-            k3, t0 = _counts()["sweep"], time.perf_counter()
-            with _torch_syncs(r, f"{w}_torch_syncs"):
-                if w == "tick":
-                    done = server.tick() == ExplorationState.DONE
-                else:
-                    for _ in range(4):
-                        nav.step()
-            torch.cuda.synchronize()
-            r[f"{w}_n"] += 1 if w == "tick" else 4
-            r[f"{w}_s"] += time.perf_counter() - t0
-            r[f"{w}_k3"] += _counts()["sweep"] - k3
-        coverage[step] = (state["explored"] != UNKNOWN).to(torch.float32).mean()
-        steps = step + 1
-        if done:
-            break
+        torch.cuda.synchronize()
+        k3, t0 = _counts()["sweep"], time.perf_counter()
+        with _torch_syncs(r, f"{w}_torch_syncs"):
+            out = fn()
+        torch.cuda.synchronize()
+        r[f"{w}_n"] += 1 if w == "tick" else 4
+        r[f"{w}_s"] += time.perf_counter() - t0
+        r[f"{w}_k3"] += _counts()["sweep"] - k3
+        return out
+
+    _reset_counts()
+    steps = profile_window[1] if profile_window else n_steps
+    run = explore_run(cfg, spec, start_xy, steps, dev, window=window)
+    if profile_window:
+        torch.cuda.synchronize()
+        r["window_s"] = time.perf_counter() - r["window_s"]
+        r["prof"].__exit__(None, None, None)
     launches = _counts()
-    cov = coverage[:steps].cpu().numpy()
-    explored = state["explored"].cpu().numpy()
+    cov = run["known"].cpu().numpy() / float(spec.size * spec.size)
+    explored = run["explored"].cpu().numpy()
     known = explored != UNKNOWN
+    server, nav = run["server"], run["nav"]
     r.update(
         steps=steps, coverage=cov, goals=server.diag.goals_sent, launches=launches,
         agree=float((explored[known] == sim.make_rooms_world(spec, seed=1)[known]).mean()),
         plans=nav.plans, tick_syncs=server.host_syncs, ctrl_syncs=nav.host_syncs,
         nodes=int(server.roadmap.n_nodes))
     return r
-
-
-def ablation_config(methods=ABLATION_METHODS["arrival_info_roadmap"]):
-    """bench_suite.py::bench_ablation's G = 64 configuration with one of its
-    cost methods (by default arrival info + roadmap costs, which is
-    tests/test_exploration_e2e.py's)."""
-    from fitslam_tpu_torch.utils.config import FitSlamConfig
-
-    cfg = FitSlamConfig()
-    return dataclasses.replace(
-        cfg,
-        frontier_search=dataclasses.replace(cfg.frontier_search, search_radius_m=6.0,
-                                            max_frontiers=64),
-        roadmap=dataclasses.replace(cfg.roadmap, max_nodes=256, cleanup_period_s=5.0),
-        nav=dataclasses.replace(cfg.nav, wavefront_iters=192, desired_speed=0.8),
-        exploration_bt=dataclasses.replace(cfg.exploration_bt, nav2_goal_timeout_s=30.0),
-        fisher_information=dataclasses.replace(cfg.fisher_information, enabled=False),
-        cost_assigner=dataclasses.replace(cfg.cost_assigner, cost_calculation_methods=methods),
-    )
 
 
 @contextmanager
@@ -1253,13 +1140,13 @@ def run_ablation(dev, n_steps=EXPLORE_STEPS):
     draws. Returns the kernels' launches over the three runs."""
     from fitslam_tpu_torch.ops.grid import GridSpec2D
 
-    small = GridSpec2D(64, 0.25, -8.0, -8.0)
+    small = GridSpec2D(**ABLATION_SPEC)
     committed = np.load(RANDOM_COSTS_DRAWS)["draws"]
     ablation = Counter()
     for name, methods in ABLATION_METHODS.items():
         t_run, draws = time.monotonic(), []
         with _recorded_draws(draws):
-            a = explore(dev, small, ablation_config(methods), (-5.0, -5.0), n_steps)
+            a = explore(dev, small, ablation_config(methods), ABLATION_START, n_steps)
         ablation.update(a["launches"])
         acov = a["coverage"]
         ticks = [t for t, _ in draws]
@@ -1293,84 +1180,23 @@ def run_ablation(dev, n_steps=EXPLORE_STEPS):
 # ---------------------------------------------------------------------------
 
 
-def active_config(W, H, features, levels, fx):
-    """bench_suite.py::bench_active_slam's configuration (that of
-    tests/test_active_slam_e2e.py and tests/test_marsyard_e2e.py at 320x240)."""
-    from fitslam_tpu_torch.utils.config import FitSlamConfig
-
-    cfg = FitSlamConfig()
-    R = dataclasses.replace
-    return R(
-        cfg,
-        camera=R(cfg.camera, width=W, height=H, fx=fx, fy=fx, cx=W / 2, cy=H / 2, baseline=0.2),
-        orb=R(cfg.orb, num_features=features, num_levels=levels, fast_threshold=12.0),
-        tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
-                   keyframe_translation=0.25),
-        mapping=R(cfg.mapping, max_keyframes=48, max_landmarks=3072, max_observations=8192,
-                  local_window=4, ba_iters=3),
-        loop=R(cfg.loop, enabled=False),
-        traversability=R(cfg.traversability, max_points_per_cloud=4096, max_clouds=48),
-        frontier_search=R(cfg.frontier_search, search_radius_m=6.0, max_frontiers=64),
-        roadmap=R(cfg.roadmap, max_nodes=256, cleanup_period_s=5.0),
-        nav=R(cfg.nav, wavefront_iters=192, desired_speed=0.7),
-        fisher_information=R(cfg.fisher_information, threshold=5.0),
-    )
-
-
-def rooms_world(dev, spec, floor_points):
-    """The rooms world of seed 3 as 3D landmarks (walls 2 m high, 4 points a
-    wall cell), with the reference's seed for jax.random.PRNGKey(5)."""
-    from fitslam_tpu_torch.data import synthetic
-    from fitslam_tpu_torch.models.sim_robot import make_rooms_world
-
-    return synthetic.world_from_occupancy(make_rooms_world(spec, seed=3), spec,
-                                          synthetic.ROOMS_WORLD_SEED, wall_height=2.0,
-                                          points_per_wall_cell=4, floor_points=floor_points,
-                                          device=dev)
-
-
-def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=None,
+def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega=None, surface_z=None,
                snapshot_at=None, twist_mux=None):
-    """The loop of bench_suite.py::bench_active_slam through the port's
-    ActiveSlamSystem: a stereo frame and its frustum cloud every step, a
-    tick every ACTIVE_TICK_EVERY steps (then the FI oracle's value at the
-    robot's true pose, read outside the tick), a controller step every
-    step. Each frame, tick and controller step runs between two
-    synchronizes and is counted: host seconds, the engine's and torch's
-    host syncs (with torch's call sites), and kernel launches. After
+    """bench_suite.active_loop (the active_slam and marsyard modes' loop) on
+    a robot at ``start``, measured through its windows: each frame, tick and
+    controller step (and, with the EKF on, the read of its estimate, as
+    tests/test_ekf_integration.py reads it: ``r["ekf"]``, beside the robot's
+    true poses, ``r["truth"]``) runs between two synchronizes and is counted:
+    host seconds, the engine's and torch's host syncs (with torch's call
+    sites), and kernel launches. After each tick, outside the window, the
+    FI oracle's value at the robot's true pose is read. After
     ``snapshot_at`` frames the coverage, goals, FI rejections and keyframes
-    are noted (outside the windows) as ``r["snapshot"]``. With the EKF on
-    (``cfg.localization.enabled``), a fourth window each step reads the
-    EKF's estimate after the controller step (its flush), as
-    tests/test_ekf_integration.py does: the estimates and the robot's true
-    poses are returned as ``r["ekf"]`` and ``r["truth"]``.
-
-    The system's scheduling clock is a ``SimClock`` that reads the
-    simulation's time, a controller step of 0.15 s a frame, not the host's:
-    on the host's clock the roadmap's periodic cleanup fires at other frames
-    on a faster or slower host, and the run's goals and path differ from
-    call to call."""
-    from fitslam_tpu_torch.data import synthetic
+    are noted as ``r["snapshot"]``."""
     from fitslam_tpu_torch.models import sim_robot as sim
-    from fitslam_tpu_torch.models.active_slam import ActiveSlamSystem, camera_pose_from_robot
-    from fitslam_tpu_torch.models.sim_nav import SimNavInterface
-    from fitslam_tpu_torch.ops import lie
-    from fitslam_tpu_torch.ops.geometry import Intrinsics
     from fitslam_tpu_torch.ops.grid import UNKNOWN
-    from fitslam_tpu_torch.utils.profiling import SimClock
 
-    clock = SimClock()
-    dt = 0.15
-    W, H = cfg.camera.width, cfg.camera.height
-    K = Intrinsics.from_config(cfg.camera, dev)
     robot = sim.DiffDriveRobot(x=start[0], y=start[1], yaw=start[2], v_max=0.8, w_max=1.0)
-    box = {}
-    nav = SimNavInterface(cfg, spec, robot, lambda: box["sys"].occupancy(), dt=dt,
-                          twist_mux=twist_mux, device=dev)
-    nav.controller.max_omega = max_omega
-    system = ActiveSlamSystem(cfg, spec, nav, device=dev, event_logger=clock,
-                              get_robot_pose=lambda: box["sys"].estimated_robot_pose())
-    box["sys"] = system
+    system, nav = active_system(cfg, spec, robot, dev, max_omega=max_omega, twist_mux=twist_mux)
 
     def engine_syncs():
         return (system.slam.host_syncs + nav.host_syncs + system.explorer.host_syncs
@@ -1379,69 +1205,49 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega, surface_z=
     r = {f"{w}_{k}": 0 for w in WINDOWS
          for k in ("n", "s", "syncs", "torch_syncs", "describe", "top2", "sweep")}
     r.update({f"{w}_sites": Counter() for w in WINDOWS})
-    cams, fi_values, infos, ekf, truth = [], [], [], [], []
+    fi_values, infos, ekf, truth = [], [], [], []
+
+    def window(w, step, fn):
+        torch.cuda.synchronize()
+        before, launches, t0 = engine_syncs(), _counts(), time.perf_counter()
+        with _torch_syncs(r, f"{w}_torch_syncs", r[f"{w}_sites"]):
+            out = fn()
+        torch.cuda.synchronize()
+        r[f"{w}_s"] += time.perf_counter() - t0
+        r[f"{w}_n"] += 1
+        r[f"{w}_syncs"] += engine_syncs() - before
+        for k, v in _counts().items():
+            if f"{w}_{k}" in r:
+                r[f"{w}_{k}"] += v - launches[k]
+        if w == "frame":
+            infos.append(out)
+        elif w == "tick":
+            fi_values.append(system.fisher_information_of_pose(robot.xy, robot.yaw))
+        elif w == "pose":
+            ekf.append(out)
+        elif w == "ctrl":
+            truth.append((robot.x, robot.y, robot.yaw))
+            if step + 1 == snapshot_at:
+                d = system.explorer.diag
+                r["snapshot"] = dict(
+                    coverage=float((system.occupancy() != UNKNOWN).float().mean()),
+                    goals=d.goals_sent, fi_rejections=d.fi_rejections,
+                    n_kf=int(system.slam.map.n_kf))
+        return out
+
     _reset_counts()
-    for step in range(n_frames):
-        z = 0.8 if surface_z is None else surface_z(robot.x, robot.y) + 0.8
-        cam = camera_pose_from_robot(robot.x, robot.y, robot.yaw, height=z, device=dev)
-        if step == 0:
-            system.set_world_anchor(cam)
-        cams.append(cam)
-        left, right = synthetic.render_stereo(K, landmarks, cam, width=W, height=H,
-                                              max_depth=12.0)
-        cloud, cvalid = synthetic.frustum_cloud(K, landmarks, cam,
-                                                max_points=cfg.traversability.max_points_per_cloud,
-                                                max_depth=8.0, width=W, height=H)
-        windows = [("frame", lambda: infos.append(
-            system.process_frame(left, right, cloud, cvalid)))]
-        if step % ACTIVE_TICK_EVERY == ACTIVE_TICK_EVERY - 1:
-            windows.append(("tick", system.tick_exploration))
-        windows.append(("ctrl", nav.step))
-        if system.ekf is not None:
-            windows.append(("pose", lambda: ekf.append(system.estimated_robot_pose())))
-        for w, fn in windows:
-            torch.cuda.synchronize()
-            before, launches, t0 = engine_syncs(), _counts(), time.perf_counter()
-            with _torch_syncs(r, f"{w}_torch_syncs", r[f"{w}_sites"]):
-                fn()
-            torch.cuda.synchronize()
-            r[f"{w}_s"] += time.perf_counter() - t0
-            r[f"{w}_n"] += 1
-            r[f"{w}_syncs"] += engine_syncs() - before
-            for k, v in _counts().items():
-                if f"{w}_{k}" in r:
-                    r[f"{w}_{k}"] += v - launches[k]
-            if w == "tick":
-                fi_values.append(system.fisher_information_of_pose(robot.xy, robot.yaw))
-        truth.append((robot.x, robot.y, robot.yaw))
-        clock.sim_s += dt
-        if step + 1 == snapshot_at:
-            d = system.explorer.diag
-            r["snapshot"] = dict(
-                coverage=float((system.occupancy() != UNKNOWN).float().mean()),
-                goals=d.goals_sent, fi_rejections=d.fi_rejections,
-                n_kf=int(system.slam.map.n_kf))
+    _, cams = active_loop(system, nav, landmarks, n_frames, surface_z=surface_z, window=window)
     launches = _counts()
     system.finalize()
-    Rs = torch.stack([c.R for c in cams])
-    ts = torch.stack([c.t for c in cams])
-    gt = list(lie.SE3(Rs, ts).matrix().cpu().numpy().astype(np.float64))
+    gt = camera_matrices(cams)
     occ = system.occupancy().cpu().numpy()
     traj = np.array([(x, y) for x, y, _ in robot.trajectory])
     r.update(system=system, robot=robot, nav=nav, gt=gt, occ=occ, fi=fi_values, infos=infos,
              ekf=ekf, truth=np.array(truth),
              launches=launches, n_kf=int(system.slam.map.n_kf),
              extent=float(np.ptp(traj[:, 0]) + np.ptp(traj[:, 1])), traj=traj,
-             ate=_ate_world(system.slam.trajectory, gt))
+             ate=ate_world(system.slam.trajectory, gt))
     return r
-
-
-def _ate_world(trajectory, gt):
-    """ATE of a SLAM-frame trajectory anchored at the first ground-truth
-    pose, without alignment (the reference tests' measure)."""
-    from fitslam_tpu_torch.utils import evaluation as ev
-
-    return ev.ate_rmse([gt[0] @ T for T in trajectory], gt, align=False)
 
 
 def _per(r, w, key):
@@ -1531,12 +1337,12 @@ def phase_active(dev):
     spec = GridSpec2D(64, 0.25, -8.0, -8.0)
     W, H = 640, 480
     cfg = active_config(W, H, 1024, 4, fx=0.625 * W)
-    world = rooms_world(dev, spec, floor_points=4000)
-    # the bench's controller (max_omega at its default of 1.0)
+    world = rooms_world(spec, dev, floor_points=4000)
+    # the bench's robot and controller (max_omega at its default of 1.0)
     r = run_active(dev, cfg, spec, world.landmarks, (-5.0, -5.0, 0.3), ACTIVE_FRAMES,
-                   max_omega=1.0, snapshot_at=ACTIVE_BENCH_FRAMES)
+                   snapshot_at=ACTIVE_BENCH_FRAMES)
     at80 = r["snapshot"]
-    ate80 = _ate_world(r["system"].slam.trajectory[:ACTIVE_BENCH_FRAMES],
+    ate80 = ate_world(r["system"].slam.trajectory[:ACTIVE_BENCH_FRAMES],
                        r["gt"][:ACTIVE_BENCH_FRAMES])
     system, known = r["system"], r["occ"] != gr.UNKNOWN
     d = system.explorer.diag
@@ -1573,7 +1379,7 @@ def phase_active(dev):
     ref = REFERENCE_ACTIVE
     log(f"[8 active] {W}x{H}, {cfg.orb.num_features} features, {cfg.orb.num_levels} levels, "
         f"G={spec.size} at {spec.resolution} m, rooms world seed 3 ({world.landmarks.shape[0]} "
-        f"points), {ACTIVE_FRAMES} frames, a tick every {ACTIVE_TICK_EVERY}: {r['frame_n']} "
+        f"points), {ACTIVE_FRAMES} frames, a tick every {TICK_EVERY}: {r['frame_n']} "
         f"frames, {r['tick_n']} ticks, {r['n_kf']} keyframes, world-anchored ATE "
         f"{r['ate']:.4f} m, coverage {known.mean():.4f}, {lethal} lethal cells, {d.goals_sent} "
         f"goals, {d.fi_rejections} FI rejections, max FI {max(r['fi']):.1f}, robot extent "
@@ -1614,17 +1420,8 @@ def phase_marsyard(dev):
     mw = synthetic.marsyard_world(spec, seed=3, points_per_cell=6, device=dev)
     r = run_active(dev, cfg, spec, mw.world.landmarks, (-5.0, -0.5, 0.2), MARSYARD_FRAMES,
                    max_omega=0.9, surface_z=lambda x, y: synthetic.marsyard_surface_z(x, y, mw, spec))
-    occ = r["occ"]
-    known = occ != gr.UNKNOWN
-    grid_lethal = known & (occ >= gr.INSCRIBED)
-    gt, gt_dil = mw.gt_lethal, np.zeros_like(mw.gt_lethal)
-    for dy in range(-3, 4):
-        for dx in range(-3, 4):
-            gt_dil |= np.roll(np.roll(gt, dy, axis=0), dx, axis=1)
-    precision = float((grid_lethal & gt_dil).sum() / max(grid_lethal.sum(), 1))
-    cells = np.clip(((r["traj"] - [spec.origin_x, spec.origin_y]) / spec.resolution).astype(int),
-                    0, spec.size - 1)
-    violations = int(gt[cells[:, 1], cells[:, 0]].sum())
+    known = r["occ"] != gr.UNKNOWN
+    grid_lethal, precision, violations, _ = lethal_scores(r["occ"], mw.gt_lethal, spec, r["traj"])
     d = r["system"].explorer.diag
     ref = REFERENCE_MARSYARD
     log(f"[8 marsyard] 320x240, {MARSYARD_FRAMES} frames, marsyard_world(seed=3, "
@@ -1674,7 +1471,7 @@ def phase_rgbd(dev):
             loop=R(cfg.loop, enabled=False),
             traversability=R(cfg.traversability, max_points_per_cloud=4800, max_clouds=32))
     K = Intrinsics.from_config(cfg.camera, dev)
-    world = rooms_world(dev, spec, floor_points=5000)
+    world = rooms_world(spec, dev, floor_points=5000)
     slam = StereoSlam(cfg, dev)
     tcfg = cfg.traversability
     box = {"clouds": gr.empty_cloud_buffer(tcfg.max_clouds, tcfg.max_points_per_cloud, dev)}
@@ -1714,7 +1511,7 @@ def phase_rgbd(dev):
     known = occ != gr.UNKNOWN
     gt = list(lie.SE3(torch.stack([c.R for c in cams]), torch.stack([c.t for c in cams]))
               .matrix().cpu().numpy().astype(np.float64))
-    ate = _ate_world(slam.trajectory, gt)
+    ate = ate_world(slam.trajectory, gt)
     n_kf, n_lm, n_fr = int(slam.map.n_kf), int(slam.map.n_lm), int(fr.valid.sum())
     free = int((occ[known] == gr.FREE).sum())
     log(f"[9 rgbd] {W}x{H}, {cfg.orb.num_features} features, {cfg.orb.num_levels} levels, "
@@ -1730,29 +1527,6 @@ def phase_rgbd(dev):
             and n_fr >= 1):
         raise AssertionError("[9 rgbd] misses the bounds of tests/test_rgbd_e2e.py")
     return n
-
-
-def loop_config():
-    """bench_suite.py::bench_loop_slam's configuration at full width: 640x480,
-    4 levels, 1024 features, 128 keyframes / 20480 landmarks / 65536
-    observations, the close-point depth 35 baselines, and its loop settings."""
-    from fitslam_tpu_torch.utils.config import FitSlamConfig
-
-    W, H = 640, 480
-    cfg = FitSlamConfig()
-    R = dataclasses.replace
-    return R(
-        cfg,
-        camera=R(cfg.camera, width=W, height=H, fx=0.625 * W, fy=0.625 * W, cx=W / 2,
-                 cy=H / 2, baseline=0.2),
-        orb=R(cfg.orb, num_features=1024, num_levels=4, fast_threshold=12.0),
-        tracking=R(cfg.tracking, min_inliers=10, keyframe_min_interval=2,
-                   keyframe_translation=0.3, keyframe_rotation=0.15),
-        mapping=R(cfg.mapping, max_keyframes=128, max_landmarks=20480, max_observations=65536,
-                  local_window=4, ba_iters=3, close_depth_factor=35.0),
-        loop=R(cfg.loop, enabled=True, min_gap_keyframes=15, min_score=0.22,
-               consistency_threshold=2, min_matches=40),
-    )
 
 
 def loop_poses(dev):
@@ -1804,63 +1578,51 @@ def _span_ms(spans, stage):
 
 
 def run_loop(dev, cfg, frames, gt, torch_syncs=None, refine=True):
-    """bench_loop_slam's run on the port: process_frame_async with a
-    pipelined poll (flush=False) every LOOP_POLL frames, a flushing poll at
-    the end; frames/s from frame 1 on the host clock between synchronizes;
-    then finalize, the ATEs, and (with ``refine``) refine_map(cycles=10,
-    gba_iters=15) timed. With ``torch_syncs`` (a Counter) torch's own count
-    of synchronising calls during the frames, and their call sites, are
-    gathered too. K1/K2 launches are counted from frame 0 to the last poll."""
+    """bench_suite.ring_run (the loop_slam mode's run) on a fresh engine,
+    with (``refine``) or without its refine_map(cycles=10, gba_iters=15),
+    measured through its windows: K1/K2 launches, host syncs and peak memory
+    from frame 0 to the last poll and, with ``torch_syncs`` (a Counter),
+    torch's own count of synchronising calls in the timed frames and their
+    call sites; PGO and GBA device time from their CUDA events."""
     from fitslam_tpu_torch.models.slam import StereoSlam
     from fitslam_tpu_torch.utils import evaluation as ev
 
     slam = StereoSlam(cfg, dev)
-    spans = []
-    n_total = len(frames)
-    tally = {"n": 0}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    with _stage_timers(spans):
-        _reset_counts()
-        slam.process_frame_async(*frames[0])
-        torch.cuda.synchronize()
-        syncs0 = slam.host_syncs
-        t0 = time.perf_counter()
+    spans, tally, got = [], {"n": 0}, {}
+
+    def window(name, step, fn):
+        if name == "first":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            got["syncs0"] = slam.host_syncs
+            return out
         guard = _torch_syncs(tally, "n", torch_syncs) if torch_syncs is not None else nullcontext()
         with guard:
-            for i in range(1, n_total):
-                slam.process_frame_async(*frames[i])
-                if i % LOOP_POLL == 0:
-                    slam.poll_keyframe_events(flush=False)
-            slam.poll_keyframe_events()
-            torch.cuda.synchronize()
-        fps = (n_total - 1) / (time.perf_counter() - t0)
-        launches = _counts()
-        syncs = slam.host_syncs - syncs0
-        run_peak = torch.cuda.max_memory_allocated(dev)
-        slam.finalize()
-        traj = [T.copy() for T in slam.trajectory]
-        ate = ev.ate_rmse(slam.trajectory, gt)
-        ate_pre = ev.ate_rmse(slam.corrected_trajectory(), gt)
+            out = fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if refine:
-            slam.refine_map(cycles=10, gba_iters=15)
-        torch.cuda.synchronize()
-        refine_s = time.perf_counter() - t0
-    corrected = slam.corrected_trajectory()
+        got.update(launches=_counts(), syncs=slam.host_syncs - got["syncs0"],
+                   run_peak=torch.cuda.max_memory_allocated(dev))
+        return out
+
+    with _stage_timers(spans):
+        r = ring_run(slam, frames, gt, dev, refine_cycles=10 if refine else 0, window=window)
+    n_total = len(frames)
     pgo_ms, n_pgo = _span_ms(spans, "pgo")
     gba_ms, n_gba = _span_ms(spans, "gba")
     return dict(
-        slam=slam, fps=fps, traj=traj, launches=launches, syncs=syncs / (n_total - 1),
-        torch_syncs=tally["n"] / (n_total - 1), ate_uncorrected=ate, ate_pre_refine=ate_pre,
-        ate=ev.ate_rmse(corrected, gt), ate_scale=ev.ate_rmse(corrected, gt, with_scale=True),
-        refine_s=refine_s, loops=len(slam.loop_events), n_kf=int(slam.map.n_kf),
+        slam=slam, fps=r["fps"], traj=r["trajectory"], launches=got["launches"],
+        syncs=got["syncs"] / (n_total - 1), torch_syncs=tally["n"] / (n_total - 1),
+        ate_uncorrected=r["ate_uncorrected"], ate_pre_refine=r["ate_pre_refine"], ate=r["ate"],
+        ate_scale=ev.ate_rmse(slam.corrected_trajectory(), gt, with_scale=True),
+        refine_s=r["refine_s"], loops=len(slam.loop_events), n_kf=int(slam.map.n_kf),
         events=[(e["loop_from"], e["loop_to"], e["inliers"], e["pgo_chi2"], e["gba_chi2"])
                 for e in slam.loop_events],
         pgo_ms=pgo_ms, n_pgo=n_pgo, gba_ms=gba_ms, n_gba=n_gba,
-        peak_gb=max(run_peak, torch.cuda.max_memory_allocated(dev)) / 1e9,
-        run_peak_gb=run_peak / 1e9)
+        peak_gb=max(got["run_peak"], torch.cuda.max_memory_allocated(dev)) / 1e9,
+        run_peak_gb=got["run_peak"] / 1e9)
 
 
 def phase_loop(dev):
@@ -1873,7 +1635,7 @@ def phase_loop(dev):
     from fitslam_tpu_torch.utils import prng
 
     t_phase = time.monotonic()
-    cfg = loop_config()
+    cfg = loop_config(False)
     W, H = cfg.camera.width, cfg.camera.height
     K = Intrinsics.from_config(cfg.camera, dev)
     T_gt = loop_poses(dev)
@@ -2004,7 +1766,7 @@ def phase_k2_verify(dev):
     a_pm1 = pm._unpack_pm1(p["a_bits"]).to(torch.bfloat16)
     b_pm1 = pm._unpack_pm1(p["b_bits"]).to(torch.bfloat16).T.contiguous()
     lib = cuda_time_ms(lambda: torch.matmul(a_pm1, b_pm1))
-    b = bound(_k2_bytes(na, nb, pm.GATE_NONE), 2 * na * nb * 256, "int8")
+    b = bound(k2_bytes(na, nb, pm.GATE_NONE), 2 * na * nb * 256, "int8")
     log(f"[10 K2 verify] none gate + mutual check at {', '.join(f'{a}x{c}' for a, c in LOOP_K2_SHAPES)} "
         f"with 300 valid columns: idx/best/second/col_best exactly equal to the twin, "
         f"match_ratio_fused's matches equal to the CPU's ({n_ok} kept at {na}x{nb}); "
@@ -2027,7 +1789,7 @@ def phase_atlas(dev):
 
     spec = GridSpec2D(64, 0.25, -8.0, -8.0)
     W, H = 320, 240
-    world = rooms_world(dev, spec, floor_points=4000).landmarks
+    world = rooms_world(spec, dev, floor_points=4000).landmarks
 
     def cfg_of(reloc):
         cfg = FitSlamConfig()
@@ -2354,9 +2116,9 @@ def phase_ekf(dev, active):
     t_phase = time.monotonic()
     spec = GridSpec2D(64, 0.25, -8.0, -8.0)
     cfg = ekf_config()
-    world = rooms_world(dev, spec, floor_points=4000)
+    world = rooms_world(spec, dev, floor_points=4000)
     runs = [run_active(dev, cfg, spec, world.landmarks, (-5.0, -5.0, 0.3), ACTIVE_BENCH_FRAMES,
-                       max_omega=1.0, twist_mux=TwistMux()) for _ in range(2)]
+                       twist_mux=TwistMux()) for _ in range(2)]
     r, system = runs[0], runs[0]["system"]
     est = [np.array([xy[0], xy[1], yaw]) for xy, yaw in r["ekf"]]
     same = all(np.array_equal(a, np.array([xy[0], xy[1], yaw]))
@@ -3006,7 +2768,7 @@ def _parallel_rank(n, dev_map, K, iters, rest):
     # the stage pipeline: frames 1..PIPELINE_FRAMES after the bootstrap frame
     cfg, backend_kw = rest["pipeline"]
     stage = mesh_mod.make_mesh(2, axis_names=("stage",))
-    _, frames, _ = bench_frames(dev, cfg, PIPELINE_FRAMES + 1)
+    frames, _ = headline_frames(cfg, dev, PIPELINE_FRAMES + 1)
     Kp, m0, st0 = _pipeline_start(dev, cfg, frames)
     stream = torch.stack([torch.stack(f) for f in frames[1:]])
     o = cfg.orb
@@ -3034,7 +2796,7 @@ def _sequential_pipeline(dev, cfg, backend_kw):
     from fitslam_tpu_torch.models import tracking as tr
     from fitslam_tpu_torch.models.slam_step import _backend_body
 
-    _, frames, _ = bench_frames(dev, cfg, PIPELINE_FRAMES + 1)
+    frames, _ = headline_frames(cfg, dev, PIPELINE_FRAMES + 1)
     K, m0, st0 = _pipeline_start(dev, cfg, frames)
     o = cfg.orb
 
@@ -3301,6 +3063,214 @@ def phase_parallel(dev, loop_run, active_run):
         raise AssertionError("[15 parallel] " + "; ".join(fails))
     return stage_counts
 
+# ---------------------------------------------------------------------------
+# Phase 16: the measurement entry points (fitslam_tpu_torch/bench.py,
+# bench_suite.py, graft_entry.py)
+# ---------------------------------------------------------------------------
+
+# the modes run in this process at full width, their frames or steps cut
+BENCH_CUT = {"rgbd_fusion": dict(n_frames=20), "active_slam": dict(n_frames=24),
+             "marsyard": dict(n_frames=24), "ablation": dict(n_steps=40)}
+# each record's extra keys: the reference's (bench_suite.py:334-340, :430-438,
+# :783-791, :673-678, :469-475, :522-566; bench.py:117-136) and the port's
+# platform and device (scaling adds its collectives, backend and card sharing)
+BENCH_KEYS = {
+    "rgbd_fusion": {"n_keyframes", "grid", "frontiers_final", "resolution"},
+    "active_slam": {"ate_rmse_m", "coverage", "goals_sent", "fi_rejections", "n_keyframes",
+                    "includes"},
+    "marsyard": {"terrain_lethal_cells", "lethal_precision_vs_gt", "gt_lethal_violations",
+                 "final_coverage", "goals_sent", "world", "artifacts"},
+    "ablation": {"methods", "best", "csv", "world", "steps"},
+    "ba": {"local", "global"},
+    "scaling": {"t1_s", "t2_s", "speedup_2dev", "efficiency_2dev", "chi2_1dev", "chi2_2dev",
+                "chi2_8dev", "problem", "coupling_Y_bytes_per_dev", "bytes_psum_per_iter",
+                "chi2_parity_all_mesh_sizes", "note", "collectives_per_iter",
+                "collectives_ms_per_iter", "backend", "ranks_share_card"},
+    "headline": {"ate_rmse_m", "n_keyframes", "n_landmarks", "resolution", "features", "levels",
+                 "loop_slam"},
+}
+# the reference's artifacts at the repo root, which no mode may touch
+COMMITTED_ARTIFACTS = ("ABLATION_COVERAGE.csv", "ABLATION_COVERAGE.png", "MARSYARD_COVERAGE.csv",
+                       "MARSYARD_TRAJECTORY.ppm", "BENCH_SUITE.json")
+
+
+def _bench_record(rec, name, what):
+    """``rec`` checked: the reference's keys and the port's, platform gpu,
+    finite numbers."""
+    def finite(x):
+        if isinstance(x, dict):
+            return all(finite(v) for v in x.values())
+        if isinstance(x, list):
+            return all(finite(v) for v in x)
+        return not isinstance(x, float) or math.isfinite(x)
+
+    want = BENCH_KEYS[name] | {"platform", "device"}
+    if set(rec) != {"metric", "value", "unit", "vs_baseline", "extra"} or set(rec["extra"]) != want:
+        raise AssertionError(f"[16 bench] {what}: keys {sorted(rec)} / {sorted(rec['extra'])}, "
+                             f"expected the extra keys {sorted(want)}")
+    if rec["extra"]["platform"] != "gpu" or not finite(rec):
+        raise AssertionError(f"[16 bench] {what}: platform {rec['extra']['platform']}, finite "
+                             f"{finite(rec)}")
+    return rec
+
+
+def _bench_cli(args, what):
+    """``python -m args`` on the card: (its one JSON record, seconds with the
+    interpreter's start)."""
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    secs = time.monotonic() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"[16 bench] {what} exited {proc.returncode} with {len(lines)} "
+                             f"lines:\n{proc.stdout}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[0]), secs
+
+
+def _in_process(fn, *args, **kwargs):
+    """fn's record, its printed line kept off this script's output."""
+    import io
+    from contextlib import redirect_stdout
+
+    with redirect_stdout(io.StringIO()) as out:
+        rec = fn(*args, **kwargs)
+    if json.loads(out.getvalue()) != json.loads(json.dumps(rec)):
+        raise AssertionError(f"[16 bench] {fn.__name__} printed another record than it returned")
+    return rec
+
+
+def _entry_check(dev):
+    """graft_entry.entry()'s step on the card against the same step on the
+    CPU, with ROADMAP F5's tolerances: pose within 1e-3, lm_match agreement
+    >= 98 %, inliers within 2 %. The two devices' pyramids differ in float32
+    ulps (F1), so near-equal corner responses may rank in another order, and
+    the map's landmarks (spawned in feature order) with them: a feature's
+    match is compared with that of the feature at its position (within 0.01
+    px) on the other device, by the matched landmark's position (within 1e-3
+    m; both unmatched agree). The card's step launches K1's describe twice
+    and K2."""
+    from fitslam_tpu_torch import graft_entry
+    from fitslam_tpu_torch.models import tracking as tr
+    from fitslam_tpu_torch.parallel.dryrun import small_setup
+
+    def run(device):
+        step, args = graft_entry.entry(device)
+        cfg, K, _, _ = small_setup(320, 240, device)
+        o = cfg.orb
+        xy = tr.process_stereo(K, args[0], args[1], num_features=o.num_features,
+                               num_levels=o.num_levels, scale_factor=o.scale_factor,
+                               fast_threshold=o.fast_threshold).feats.xy
+        step(*args)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+            _reset_counts()
+        T, lm, n = step(*args)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        pos = torch.where((lm >= 0)[:, None], args[2].lm_pos[lm.clamp(min=0).long()],
+                          torch.full((1, 3), float("nan"), device=lm.device))
+        return args, xy.cpu(), T.cpu(), pos.cpu(), lm.cpu(), int(n)
+
+    args, xy, T, pos, lm, n = run(dev)
+    launches = _counts()
+    args_c, xy_c, T_c, pos_c, lm_c, n_c = run("cpu")
+    same_input = all(torch.equal(a.cpu(), b) for a, b in zip(args[:2], args_c[:2]))
+    d_pose = (T - T_c).abs().max().item()
+    dist, j = torch.cdist(xy.double(), xy_c.double()).min(dim=1)
+    d_lm = (pos - pos_c[j]).abs().amax(dim=1)
+    same_lm = (d_lm <= 1e-3) | (pos.isnan().all(dim=1) & pos_c[j].isnan().all(dim=1))
+    agree = ((dist < 0.01) & same_lm).double().mean().item()
+    same_order = (lm == lm_c).double().mean().item()
+    line = (f"graft_entry.entry() step on the card vs the CPU: pose |d| {d_pose:.2e}, lm_match "
+            f"agreement {agree:.4f} by position ({same_order:.4f} by index), inliers {n} vs "
+            f"{n_c}, inputs bit-equal {same_input}; launches a step {launches}")
+    if not (d_pose <= 1e-3 and agree >= 0.98 and abs(n - n_c) <= 0.02 * n_c and n_c > 100):
+        raise AssertionError(f"[16 bench] {line}")
+    if launches["describe"] != 2 or launches["top2"] < 1:
+        raise AssertionError(f"[16 bench] {line}: expected 2 describes and K2")
+    return line, launches
+
+
+def phase_bench_entry(dev, bench_fps):
+    """[16 bench]: ``python -m fitslam_tpu_torch.bench`` (the headline and
+    its loop block; ATE <= 0.025 m, a seed with loops), the kernels, ba and
+    scaling modes in full (ba through its command line), the other modes at
+    full width and cut depth in this process (their launches counted), each
+    record's keys checked; the reference's committed artifacts untouched;
+    then graft_entry.entry()'s step against the CPU's. Returns the launches
+    of the in-process modes and of the entry step."""
+    import hashlib
+
+    from fitslam_tpu_torch import bench_suite
+
+    t_phase = time.monotonic()
+    digest = lambda: {f: hashlib.sha256((ROOT / f).read_bytes()).hexdigest()
+                      for f in COMMITTED_ARTIFACTS if (ROOT / f).exists()}
+    before = digest()
+    head, secs = _bench_cli(["fitslam_tpu_torch.bench"], "python -m fitslam_tpu_torch.bench")
+    _bench_record(head, "headline", "bench")
+    ex, loop = head["extra"], head["extra"]["loop_slam"]
+    log(f"[16 bench] python -m fitslam_tpu_torch.bench: {head['value']} frames/s (phase 5's "
+        f"passes: {', '.join(f'{f:.2f}' for f in bench_fps)}), ATE {ex['ate_rmse_m']} m, "
+        f"{ex['n_keyframes']} keyframes; loop_slam {loop['frames_per_s_per_chip']} frames/s, "
+        f"ATE {loop['ate_rmse_m']} m (max {loop['ate_rmse_m_max']}, uncorrected "
+        f"{loop['ate_rmse_uncorrected_m']}), seeds with loops {loop['seeds_with_loops']} of "
+        f"{loop['n_seeds']}; {secs:.1f} s with the interpreter's start; {ex['device']}")
+    if not (ex["ate_rmse_m"] <= ATE_BOUND_M and loop["seeds_with_loops"] >= 1):
+        raise AssertionError(f"[16 bench] the headline misses ATE <= {ATE_BOUND_M} m or closed "
+                             f"no loop: {head}")
+    ba, secs = _bench_cli(["fitslam_tpu_torch.bench_suite", "--mode", "ba"],
+                          "bench_suite --mode ba")
+    _bench_record(ba, "ba", "ba")
+    log(f"[16 bench] bench_suite --mode ba: " + ", ".join(
+        f"{k} {v['iters_per_s']} iterations/s ({v['n_kf']}/{v['n_lm']}/{v['n_obs']}, chi2 "
+        f"{v['final_chi2']})" for k, v in ba["extra"].items() if k in ("local", "global"))
+        + f"; {secs:.1f} s")
+    t0 = time.monotonic()
+    sc = _bench_record(_in_process(bench_suite.bench_scaling, False, dev), "scaling", "scaling")
+    e = sc["extra"]
+    log(f"[16 bench] scaling: 1 / 2 ranks {e['t1_s']} / {e['t2_s']} s a solve, efficiency_2dev "
+        f"{e['efficiency_2dev']} (ranks share card 0: {e['ranks_share_card']}, not a scaling "
+        f"figure), chi2 {e['chi2_1dev']} / {e['chi2_2dev']} / {e['chi2_8dev']} (1 / 2 / 8 "
+        f"ranks), collectives ms an iteration {e['collectives_ms_per_iter']}; "
+        f"{time.monotonic() - t0:.1f} s")
+    if not e["chi2_parity_all_mesh_sizes"]:
+        raise AssertionError(f"[16 bench] scaling: chi2 differs between the meshes: {e}")
+    t0 = time.monotonic()
+    kr = _in_process(bench_suite.bench_kernels, False, dev)
+    if kr["metric"] != "kernel_match_us_at_map_capacity" or kr["extra"]["platform"] != "gpu":
+        raise AssertionError(f"[16 bench] kernels: {kr}")
+    log("[16 bench] kernels (device us, queue pre-filled; plain twin; library; bound): "
+        + "; ".join(f"{k} {v['ms'] * 1e3:.1f} / {v['plain_ms'] * 1e3:.1f} / "
+                    + ("-" if v["library_ms"] is None else f"{v['library_ms'] * 1e3:.1f}")
+                    + f" / {v['bound_ms'] * 1e3:.2f} ({v['bound_by']})"
+                    for k, v in kr["extra"].items() if isinstance(v, dict))
+        + f"; {time.monotonic() - t0:.1f} s")
+    _reset_counts()
+    for name, cut in BENCH_CUT.items():
+        t0 = time.monotonic()
+        rec = _bench_record(_in_process(bench_suite.MODES[name], False, device=dev, **cut), name,
+                            name)
+        log(f"[16 bench] {name} {cut}: {rec['value']} {rec['unit']}, "
+            + json.dumps({k: v for k, v in rec["extra"].items() if k != "device"})
+            + f"; {time.monotonic() - t0:.1f} s")
+    modes = _counts()
+    if modes["describe"] <= 0 or modes["top2"] <= 0 or modes["sweep"] <= 0 or modes["gather"]:
+        raise AssertionError(f"[16 bench] the in-process modes' launches: {modes}")
+    written = [p for p in ("ABLATION_COVERAGE.csv", "MARSYARD_COVERAGE.csv",
+                           "MARSYARD_TRAJECTORY.ppm")
+               if not (bench_suite.ARTIFACTS / p).is_file()]
+    if digest() != before or written:
+        raise AssertionError(f"[16 bench] the committed artifacts changed ({digest() != before}) "
+                             f"or build/bench lacks {written}")
+    line, step = _entry_check(dev)
+    log(f"[16 bench] {line}; modes' launches {modes}; the committed artifacts byte-identical; "
+        f"phase {time.monotonic() - t_phase:.1f} s")
+    return modes, step
+
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -3321,8 +3291,8 @@ def profile_bench(dev):
     (the fused describe, or the parent's gathers) and the top kernels."""
     from fitslam_tpu_torch.models.slam import StereoSlam
 
-    cfg = bench_config()
-    _, frames, _ = bench_frames(dev, cfg)
+    cfg = headline_config()
+    frames, _ = headline_frames(cfg, dev)
     warm = StereoSlam(cfg, dev)
     for l, r in frames[:PROFILE_FRAMES[1]]:
         warm.process_frame_async(l, r)
@@ -3400,9 +3370,14 @@ def main() -> int:
     if args.tree != ROOT and not args.profile:
         ap.error("--tree goes with --profile")
     sys.path.insert(0, str(args.tree.resolve()))
+    if args.tree != ROOT:
+        # the timing helpers stay this checkout's; the package under test is the tree's
+        for name in [m for m in sys.modules if m.split(".")[0] == "fitslam_tpu_torch"]:
+            del sys.modules[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_script = time.monotonic()
     smi = phase_environment()
     if args.profile:
         phase_profile(dev)
@@ -3412,7 +3387,7 @@ def main() -> int:
     k1d = phase_describe(dev)
     k2 = phase_k2(dev)
     phase_golden(dev)
-    n = phase_bench(dev)
+    n, bench_fps = phase_bench(dev)
     k3 = phase_k3(dev)
     paths = {"bench": n}
     paths["explore"], paths["ablation"] = phase_explore(dev)
@@ -3429,6 +3404,7 @@ def main() -> int:
     paths["fleet_slam"] = phase_fleet_slam(dev)
     paths["active_entry"], paths["vo"] = phase_entry(dev)
     paths["stage"] = phase_parallel(dev, loop, active)
+    paths["bench_modes"], paths["graft_step"] = phase_bench_entry(dev, bench_fps)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just
@@ -3455,6 +3431,7 @@ def main() -> int:
          "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": paths["explore"]["sweep"],
          "launches_by_path": by_path("sweep"), **k3},
     ]
+    log(f"[done] phases 1-16 in {time.monotonic() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

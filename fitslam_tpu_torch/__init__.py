@@ -18,8 +18,13 @@ over ``csrc/runtime.cc``, built with g++ at first use), driven by
 (``run_multirobot``, ``run_multirobot_slam``); the examples' entry points
 ``python -m fitslam_tpu_torch.run_active_slam`` and ``run_vo``, with
 checkpoint / resume in the reference's file format (``utils/checkpoint.py``)
-and the live view (``utils/liveview.py``). ``jax.random``'s draws of the
-reference's worlds are made bit for bit in numpy (``utils/prng.py``). Their
+and the live view (``utils/liveview.py``); the sharded solvers of
+``parallel/``; and the measurement entry points that mirror the repo-level
+runners: ``python -m fitslam_tpu_torch.bench`` (the headline),
+``python -m fitslam_tpu_torch.bench_suite --mode ...`` (one JSON line a
+mode) and ``graft_entry.entry()`` (the flagship frame step).
+``jax.random``'s draws of the reference's worlds are made bit for bit in
+numpy (``utils/prng.py``). Their
 three hand-written Hopper kernels live in ``csrc/`` and are built with nvcc
 at first use:
 

@@ -184,9 +184,10 @@ def check(results: list) -> str:
     return line
 
 
-def dryrun(n: int, backend: str = "gloo", device: str = "cpu", timeout: float = 600.0):
+def dryrun(n: int, backend: str = "gloo", device: str = "cuda:0", timeout: float = 600.0):
     """Run the nine stages on ``n`` spawned ranks, check them, print the
-    summary line; returns every rank's figures."""
+    summary line; returns every rank's figures. By default every rank shares
+    card 0 over gloo, as the command line does; ``device="cpu"`` for the CPU."""
     from fitslam_tpu_torch.parallel import mesh as mesh_mod
 
     if n < 2:

@@ -307,12 +307,13 @@ def rank_devices(n: int, backend: str, device: str) -> list:
     return [str(dev)] * n
 
 
-def launch(fn: Callable, n: int, *args, backend: str = "gloo", device: str = "cpu",
+def launch(fn: Callable, n: int, *args, backend: str = "gloo", device: str = "cuda",
            timeout: float = 600.0, **kwargs) -> list:
     """Run ``fn(*args, **kwargs)`` on ``n`` spawned ranks joined in one
     process group; returns each rank's result (tensors moved to the CPU), in
-    rank order. ``fn`` and its arguments cross by pickle, so ``fn`` must be
-    importable (a module-level function). A rank that raises, dies or
+    rank order. The ranks run on ``rank_devices(n, backend, device)``: the
+    cards by default, the CPU only when asked for. ``fn`` and its arguments
+    cross by pickle, so ``fn`` must be importable (a module-level function). A rank that raises, dies or
     outlasts ``timeout`` seconds fails the launch with its traceback; every
     rank is stopped before this returns or raises."""
     devices = rank_devices(n, backend, device)

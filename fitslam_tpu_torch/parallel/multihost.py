@@ -28,16 +28,20 @@ import torch
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
-               backend: str = "gloo", device: str = "cpu") -> None:
+               backend: str = "gloo", device: str = "cuda") -> None:
     """Join the process group at ``coordinator`` (host:port) as rank
-    ``process_id`` of ``num_processes``, on ``device``."""
+    ``process_id`` of ``num_processes``, on ``device``: ``cuda`` is card
+    ``process_id`` (one card a rank), ``cuda:N`` card N, ``cpu`` the CPU."""
     from fitslam_tpu_torch.parallel import mesh as mesh_mod
 
-    mesh_mod.init_rank(backend, f"tcp://{coordinator}", num_processes, process_id, device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", process_id)
+    mesh_mod.init_rank(backend, f"tcp://{coordinator}", num_processes, process_id, dev)
 
 
 def build_problem(key_seed: int = 0, n_kf: int = 6, n_lm: int = 96, n_obs: int = 512,
-                  device="cpu", focal: float = 120.0):
+                  device="cuda", focal: float = 120.0):
     """The reference's synthetic BA problem, identical on every process: its
     random draws are ``jax.random``'s, bit for bit (``utils/prng.py``). The
     multi-chip dry run's problem is the same with a focal length of 100."""

@@ -7,8 +7,9 @@ import nothing of the reference package. Field names and defaults equal the
 reference's field for field (``tests/test_torch_utils.py`` checks it), so a
 reference ``FitSlamConfig`` can be passed to the port's ``StereoSlam``,
 ``ExplorationServer``, ``ActiveSlamSystem`` and ``MultiRobotCoordinator``
-as well. ``parallel`` holds the mesh layout only (the sharded solvers are
-not ported yet). ``load_config`` imports ``yaml`` only when it is given a
+as well. ``parallel`` holds the reference's mesh-layout fields (axis
+names); the sharded solvers of ``parallel/`` take their mesh from the caller.
+``load_config`` imports ``yaml`` only when it is given a
 path, so nothing else needs PyYAML.
 """
 

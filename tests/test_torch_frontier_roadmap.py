@@ -290,7 +290,7 @@ def test_random_costs_draws_file_equals_jax():
     np.testing.assert_array_equal(port.view(np.uint32), draws.view(np.uint32))
 
 
-def test_random_costs_raise_not_implemented():
+def test_random_costs_match_reference():
     """RandomCosts (ROADMAP F11, closed): the port once raised here; now
     ``assign_costs(methods=("RandomCosts",))`` equals the reference's for the
     tick keys the exploration server passes and for the default key."""

@@ -97,7 +97,7 @@ def test_dryrun_two_ranks_matches_reference(capsys):
     live GBA, are held to the reference in test_torch_parallel_pipeline.py,
     test_torch_parallel_loop.py and test_torch_parallel_ba.py)."""
     # the ranks run in the background while the reference runs here
-    port = in_background(dryrun.dryrun, 2)
+    port = in_background(functools.partial(dryrun.dryrun, device="cpu"), 2)
     ref = _reference_dryrun_stages(2)
     results = port.result()
     assert "[dryrun] mesh=(('data', 2),)" in capsys.readouterr().out

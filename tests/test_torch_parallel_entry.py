@@ -62,7 +62,7 @@ def _results(procs):
 
 def test_build_problem_matches_reference():
     K_ref, ref = jax.tree.map(np.asarray, jmultihost.build_problem(n_obs=512))
-    K, got = multihost.build_problem(n_obs=512)
+    K, got = multihost.build_problem(n_obs=512, device="cpu")
     for name in ("kf", "lm", "sigma2", "valid"):
         np.testing.assert_array_equal(getattr(got.obs, name).numpy(), getattr(ref.obs, name))
     np.testing.assert_array_equal(got.points.numpy(), ref.points)
