@@ -132,6 +132,18 @@ Phases, each printing one line (any failure raises and exits non-zero):
      counted, the reference's committed artifacts byte-identical after),
      then graft_entry.entry()'s step on the card against the CPU's (F5's
      tolerances; 2 describes and K2 a step).
+ 17. (three lines) the captured frame step (fitslam_tpu_torch/utils/jit.py:
+     StereoSlam's five regions as CUDA graphs) at the headline's
+     configuration (640x480, 4 levels, 1024 features, 8192 landmarks, loop
+     closing and relocalization on) over its 60 frames through
+     bench.timed_pass, eager (``capture=False``) and captured in turns
+     (eager, captured, captured, eager; the second captured engine takes the
+     first one's graphs): poses bit-equal, the final maps and the outs_log
+     values equal, K1 and K2 launches equal; frames/s and host ms a frame of
+     each pass, each region's calls, capture seconds and graph pool GB; then
+     torch.profiler over frames 20-39 of each mode: kernels and host
+     launches (kernels, graphs) a frame and the device's busy share.
+Every phase from 4 on runs StereoSlam captured, its default.
 Phases 5, 7, 8, 10 and 12 drive the bench's own loops (bench.timed_pass,
 bench_suite.explore_run, active_loop and ring_run) and measure them through
 the loops' ``window`` hook, so the loop a mode times is the loop a phase
@@ -140,8 +152,9 @@ Then a JSON line with every kernel's launches (K1/K2 from the last timed
 pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
 gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
 loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, stage: the
-pipeline's ranks summed, bench_modes: phase 16's in-process modes, and
-graft_step: one entry() step), error, device times
+pipeline's ranks summed, bench_modes: phase 16's in-process modes,
+graft_step: one entry() step, and captured: phase 17's second captured
+pass), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -3271,6 +3284,135 @@ def phase_bench_entry(dev, bench_fps):
 
 
 
+CAPTURE_PASSES = (False, True, True, False)   # eager, captured, captured, eager
+
+
+def _host_launches(prof):
+    """(kernel launches, graph launches) the host made in a profiler window,
+    from its CUDA runtime and driver calls."""
+    kernels = graphs = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx"):
+            kernels += e.count
+        elif e.key.startswith("cudaGraphLaunch") or e.key.startswith("cuGraphLaunch"):
+            graphs += e.count
+    return kernels, graphs
+
+
+def _profiled_frames(dev, cfg, frames, capture):
+    """torch.profiler over frames PROFILE_FRAMES of a fresh engine's async
+    pass: kernels a frame on the device, the host's kernel and graph
+    launches a frame, the busy share and the window's host ms a frame."""
+    from fitslam_tpu_torch.models.slam import StereoSlam
+
+    slam = StereoSlam(cfg, dev, capture=capture)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    for i, (l, r) in enumerate(frames[:PROFILE_FRAMES[1]]):
+        if i == PROFILE_FRAMES[0]:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            t0 = time.perf_counter()
+        slam.process_frame_async(l, r)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    slam.finalize()
+    n = PROFILE_FRAMES[1] - PROFILE_FRAMES[0]
+    times = _kernel_times(prof)
+    busy_us = sum(t for t, _ in times.values())
+    host_k, host_g = _host_launches(prof)
+    if busy_us <= 0:
+        raise AssertionError("[17 captured] the profiler recorded no device time")
+    return dict(kernels=sum(c for _, c in times.values()) / n, host_kernels=host_k / n,
+                host_graphs=host_g / n, busy=busy_us / 1e4 / window_s,
+                ms=window_s / n * 1e3, kernel_ms=busy_us / n / 1e3)
+
+
+def phase_captured(dev, smi):
+    """[17 captured]: the headline's frame step eager and captured in turns
+    (CAPTURE_PASSES) through bench.timed_pass, each pass on a fresh engine:
+    bit-equal poses, maps and outs_log values, equal K1 / K2 counts; then a
+    profiler window of each mode, each line naming the card (``smi``).
+    Returns the second captured pass's launches."""
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.utils import evaluation as ev
+    from fitslam_tpu_torch.utils import jit
+
+    t_phase = time.monotonic()
+    cfg = headline_config()
+    frames, gt = headline_frames(cfg, dev)
+    jit.release_idle()           # the first captured pass captures here
+    passes = []
+    for capture in CAPTURE_PASSES:
+        slam = StereoSlam(cfg, dev, capture=capture)
+        _reset_counts()
+        fps = timed_pass(slam, frames, dev)
+        counts = _counts()
+        outs = [torch.stack([getattr(o, f).float().reshape(-1) for o in slam.outs_log]).cpu()
+                for f in slam.outs_log[0]._fields]
+        stats = slam.capture_stats
+        slam.finalize()
+        passes.append(dict(
+            capture=capture, fps=fps, counts=counts, outs=outs, stats=stats,
+            traj=np.stack(slam.trajectory), ate=ev.ate_rmse(slam.trajectory, gt),
+            map=[t.cpu() for t in jit.flatten(slam.map)[0]], n_kf=int(slam.map.n_kf)))
+        del slam                 # the next captured engine takes its graphs
+    first = passes[0]
+    diff = max(float(np.abs(p["traj"] - first["traj"]).max()) for p in passes)
+    same_map = all(all(torch.equal(a, b) for a, b in zip(p["map"], first["map"]))
+                   for p in passes)
+    same_outs = all(all(torch.equal(a, b) for a, b in zip(p["outs"], first["outs"]))
+                    for p in passes)
+    cap1, cap2 = [p for p in passes if p["capture"]]
+    # a region the first pass captured is not captured again (one that it
+    # only warmed up, such as track_uninitialized, is captured on its second call)
+    reused = all(cap2["stats"][r]["calls"] > s["calls"]
+                 and (not s["captured"] or cap2["stats"][r]["capture_s"] == s["capture_s"])
+                 for r, s in cap1["stats"].items())
+    nf = N_BENCH_FRAMES
+    log(f"[17 captured] headline {cfg.camera.width}x{cfg.camera.height}, {nf} frames, passes "
+        + ", ".join(f"{'captured' if p['capture'] else 'eager'} {p['fps']:.2f} frames/s "
+                    f"({1e3 / p['fps']:.2f} host ms a frame)" for p in passes)
+        + f"; max |pose difference| {diff}, maps equal {same_map}, outs_log values equal "
+        f"{same_outs}; K1 / K2 launches a frame "
+        + ", ".join(f"{p['counts']['describe'] / nf:.2f} / {p['counts']['top2'] / nf:.2f}"
+                    for p in passes)
+        + f"; ATE {first['ate']:.4f} m, {first['n_kf']} keyframes; the second captured engine "
+        f"took the first one's graphs: {reused}; {smi}")
+    log("[17 captured] regions (calls over both captured passes, capture s, graph pool GB): "
+        + "; ".join(f"{r} {s['calls']}, "
+                    + ("not captured" if not s["captured"] else
+                       f"{s['capture_s']:.3f} s, {s['pool_bytes'] / 1e9:.3f} GB")
+                    for r, s in cap2["stats"].items())
+        + f"; pools {sum(s['pool_bytes'] or 0 for s in cap2['stats'].values()) / 1e9:.3f} GB; "
+        f"{smi}")
+    prof = {capture: _profiled_frames(dev, cfg, frames, capture) for capture in (False, True)}
+    log(f"[17 captured] torch.profiler over frames {PROFILE_FRAMES[0]}-{PROFILE_FRAMES[1] - 1}: "
+        + "; ".join(f"{'captured' if c else 'eager'} {r['ms']:.2f} host ms a frame, kernel time "
+                    f"{r['kernel_ms']:.3f} ms a frame (busy {r['busy']:.2f} %), "
+                    f"{r['kernels']:.1f} kernels a frame on the device, host launches a frame "
+                    f"{r['host_kernels']:.1f} kernels + {r['host_graphs']:.1f} graphs"
+                    for c, r in prof.items())
+        + f"; phase {time.monotonic() - t_phase:.1f} s; {smi}")
+    if diff != 0.0 or not same_map or not same_outs:
+        raise AssertionError(f"[17 captured] captured and eager differ: poses {diff}, maps "
+                             f"equal {same_map}, outs_log equal {same_outs}")
+    if any((p["counts"]["describe"], p["counts"]["top2"])
+           != (first["counts"]["describe"], first["counts"]["top2"]) for p in passes) \
+            or first["counts"]["describe"] != 2 * nf or first["counts"]["top2"] <= 0:
+        raise AssertionError(f"[17 captured] K1 / K2 launches: {[p['counts'] for p in passes]}")
+    if not (first["ate"] <= ATE_BOUND_M and reused):
+        raise AssertionError(f"[17 captured] ATE {first['ate']} or the graphs were captured "
+                             f"again ({reused})")
+    if prof[True]["host_graphs"] <= 0:
+        raise AssertionError("[17 captured] the profiler saw no graph launch")
+    return cap2["counts"]
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -3405,6 +3547,7 @@ def main() -> int:
     paths["active_entry"], paths["vo"] = phase_entry(dev)
     paths["stage"] = phase_parallel(dev, loop, active)
     paths["bench_modes"], paths["graft_step"] = phase_bench_entry(dev, bench_fps)
+    paths["captured"] = phase_captured(dev, smi)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just
@@ -3431,7 +3574,7 @@ def main() -> int:
          "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": paths["explore"]["sweep"],
          "launches_by_path": by_path("sweep"), **k3},
     ]
-    log(f"[done] phases 1-16 in {time.monotonic() - t_script:.1f} s")
+    log(f"[done] phases 1-17 in {time.monotonic() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

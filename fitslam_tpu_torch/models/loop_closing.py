@@ -214,8 +214,9 @@ class LoopCloser:
         n_inl_h, map_i, map_j = int(v[0]), int(v[1]), int(v[2])
         T_i = lie.SE3(m.kf_T_cw.R[i], m.kf_T_cw.t[i])
         # keyframe j's pose before the correction: the tracker update at the
-        # end composes the correction relative to it
-        T_j_old = lie.SE3(m.kf_T_cw.R[j], m.kf_T_cw.t[j])
+        # end composes the correction relative to it (copied: assigning the
+        # engine's map overwrites its buffers in place)
+        T_j_old = lie.SE3(m.kf_T_cw.R[j].clone(), m.kf_T_cw.t[j].clone())
         T_ij = lie.compose(T_i, lie.inverse(T_loop))
         # ~2 at the 40-inlier floor, saturating at 10 for dense revisits
         edge_w = float(min(10.0, n_inl_h / 20.0))

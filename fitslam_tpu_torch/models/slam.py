@@ -13,10 +13,22 @@ Both behaviours of the reference's pipelined polling are kept: keyframe
 events are polled with one packed readback per window (``flush=False`` starts
 the copy now and delivers it at the next poll), and every ``outs_log`` entry
 carries its own frame id.
+
+The frame step runs as captured programs (``utils/jit.py``), the counterpart
+of the reference's ``vjit(process_stereo)`` and ``vjit(slam_backend_step)``:
+the frontend is one region and the backend four (``models/slam_step.py``),
+cut at its two host reads; on CUDA each is a CUDA graph replayed after one
+eager warm-up and one capture. ``map`` and ``state`` live in the regions'
+buffers and are updated in place there; assigning either copies into them.
+A frame's outputs and features that must outlive the next step (the async
+path's ``outs_log`` and frame ring, the trajectory's anchors) are copied out
+of the buffers. ``capture=False`` runs the same regions as plain PyTorch,
+with no buffers: the eager path that captured runs are held to.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -25,19 +37,23 @@ import torch
 from fitslam_tpu_torch.models import slam_map as sm
 from fitslam_tpu_torch.models import tracking as tr
 from fitslam_tpu_torch.models.loop_closing import LoopCloser, detect_loop, verify_loop
-from fitslam_tpu_torch.models.slam_step import StepOutputs, _backend_body
+from fitslam_tpu_torch.models.slam_step import StepOutputs, backend_step
 from fitslam_tpu_torch.ops import ba, lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics
 from fitslam_tpu_torch.ops.place import signature_from_descriptors
+from fitslam_tpu_torch.utils import jit
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 
 
 class StereoSlam:
-    """Stereo SLAM system with fixed-capacity state on ``device``."""
+    """Stereo SLAM system with fixed-capacity state on ``device``. With
+    ``capture`` (the default) the frame step runs as captured programs
+    through static buffers (CUDA graphs on a CUDA device); ``capture=False``
+    keeps it eager."""
 
     def __init__(self, cfg: FitSlamConfig, device="cuda",
-                 event_logger: Optional[EventLogger] = None):
+                 event_logger: Optional[EventLogger] = None, capture: bool = True):
         # float32 products must stay float32: TF32 keeps ~3 decimal digits and
         # the pose chains compound it
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,10 +61,9 @@ class StereoSlam:
         self.cfg = cfg
         self.device = torch.device(device)
         self.K = Intrinsics.from_config(cfg.camera, self.device)
-        mp = cfg.mapping
-        self.map = sm.empty_map(mp.max_keyframes, mp.max_landmarks, mp.max_observations,
-                                signature_dim=cfg.loop.vocab_dim, device=self.device)
-        self.state = tr.init_track_state(self.device)
+        self.capture = capture
+        self._slot: Optional[jit.Slot] = None   # claimed at the first frame step
+        self._map, self._state = self._fresh_state()
         self.frame_id = 0
         self.trajectory: List[np.ndarray] = []   # T_wc 4x4 per frame
         self._traj_ref: List = []                # (ref_kf, its T_cw then) per frame
@@ -69,21 +84,92 @@ class StereoSlam:
         self.loop_events: List[Dict] = []
 
     # ------------------------------------------------------------------
+    # State and its buffers
+    # ------------------------------------------------------------------
+
+    def _fresh_state(self):
+        mp = self.cfg.mapping
+        m = sm.empty_map(mp.max_keyframes, mp.max_landmarks, mp.max_observations,
+                         signature_dim=self.cfg.loop.vocab_dim, device=self.device)
+        return m, tr.init_track_state(self.device)
+
+    def _claim_slot(self) -> jit.Slot:
+        """Take a slot of this configuration and map capacity
+        (``utils/jit.py``) at the first frame step, when an engine this one
+        replaces (``slam = StereoSlam(..)`` in a loop) is gone: its buffers
+        hold copies of this engine's map, tracker state and intrinsics from
+        then on."""
+        own = {"K": self.K, "map": self._map, "state": self._state,
+               "frame_id": torch.zeros((), dtype=torch.int32, device=self.device)}
+        key = ("StereoSlam", repr(self.cfg), self._map.capacity,
+               self._map.kf_signature.shape[1])
+        slot, new = jit.claim(self, key, self.device,
+                              lambda: {name: jit.clone(tree) for name, tree in own.items()})
+        if not new:
+            for name in ("K", "map", "state"):
+                jit.assign(slot.buffers[name], own[name])
+        self._slot = slot
+        self.K = slot.buffers["K"]
+        self._map, self._state = slot.buffers["map"], slot.buffers["state"]
+        return slot
+
+    @property
+    def map(self) -> sm.SlamMap:
+        """The map; with capture, the regions' buffers (updated in place by
+        each step: copy what must not change)."""
+        return self._map
+
+    @map.setter
+    def map(self, m: sm.SlamMap):
+        if self._slot is None:
+            self._map = m
+        else:
+            jit.assign(self._map, m)
+
+    @property
+    def state(self) -> tr.TrackState:
+        return self._state
+
+    @state.setter
+    def state(self, st: tr.TrackState):
+        if self._slot is None:
+            self._state = st
+        else:
+            jit.assign(self._state, st)
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path."""
+        return self._slot.stats() if self._slot is not None else {}
+
+    def _run(self, name, fn, *args):
+        if not self.capture:
+            return jit.run_eagerly(name, fn, *args)
+        return (self._slot or self._claim_slot()).run(name, fn, *args)
+
+    def _keep(self, tree):
+        """A copy of a step's output that the next step leaves alone."""
+        return self._slot.snapshot(tree) if self.capture else tree
+
+    # ------------------------------------------------------------------
     # Frame pipeline
     # ------------------------------------------------------------------
 
     def _frontend(self, img_left, img_right) -> tr.StereoFrame:
         o = self.cfg.orb
-        return tr.process_stereo(self.K, img_left, img_right, num_features=o.num_features,
-                                 num_levels=o.num_levels, scale_factor=o.scale_factor,
-                                 fast_threshold=o.fast_threshold)
+        fn = functools.partial(tr.process_stereo, num_features=o.num_features,
+                               num_levels=o.num_levels, scale_factor=o.scale_factor,
+                               fast_threshold=o.fast_threshold)
+        return self._run("frontend_stereo", jit.pure(fn), self.K, img_left, img_right)[1]
 
     def _frontend_rgbd(self, img, depth_img) -> tr.StereoFrame:
         o = self.cfg.orb
-        return tr.process_rgbd(self.K, img, depth_img, num_features=o.num_features,
+        fn = functools.partial(tr.process_rgbd, num_features=o.num_features,
                                num_levels=o.num_levels, scale_factor=o.scale_factor,
                                fast_threshold=o.fast_threshold,
                                max_depth=self.cfg.camera.depth_max)
+        return self._run("frontend_rgbd", jit.pure(fn), self.K, img, depth_img)[1]
 
     def backend_kwargs(self) -> Dict:
         """The backend step's settings from the config (``_backend_body``'s
@@ -115,13 +201,21 @@ class StereoSlam:
                              else cfg.mapping.close_depth_factor * cfg.camera.baseline),
         )
 
-    def _step(self, frame: tr.StereoFrame) -> StepOutputs:
-        self.map, self.state, outs, inserted, syncs = _backend_body(
-            self.K, self.map, self.state, frame, self.frame_id,
-            initialized=self._track_initialized, **self.backend_kwargs())
+    def _step(self, frame: tr.StereoFrame):
+        """The backend's regions on one frame: (outputs, the tracker's
+        lost-frame count), in the last region's buffers when captured."""
+        fid_buf = None
+        if self.capture:
+            fid_buf = (self._slot or self._claim_slot()).buffers["frame_id"]
+        m, st, outs, lost, inserted, syncs = backend_step(
+            self._run, self.K, self._map, self._state, frame, self.frame_id,
+            initialized=self._track_initialized, frame_id_buf=fid_buf,
+            **self.backend_kwargs())
+        if not self.capture:
+            self._map, self._state = m, st
         self.host_syncs += syncs
         self._track_initialized = self._track_initialized or inserted
-        return outs
+        return outs, lost
 
     def process_frame(self, img_left, img_right) -> Dict:
         """Track one stereo frame and read its result back."""
@@ -147,13 +241,13 @@ class StereoSlam:
         return self.process_prepared_async(self._frontend(img_left, img_right))
 
     def process_prepared_async(self, frame: tr.StereoFrame) -> StepOutputs:
-        outs = self._step(frame)
+        outs = self._keep(self._step(frame)[0])
         self.outs_log.append(outs)
         # frame id recorded per entry: interleaved process_frame calls advance
         # frame_id without touching outs_log
         self._outs_fids.append(self.frame_id)
         if self.loop_closer is not None or self.keyframe_events:
-            self._frame_ring[self.frame_id] = frame
+            self._frame_ring[self.frame_id] = self._keep(frame)
         self._initialized = True
         self.frame_id += 1
         return outs
@@ -280,18 +374,14 @@ class StereoSlam:
         tracker is lost, and loop closing on a keyframe."""
         cfg = self.cfg
         with self.log.scope("backend_step", MODULE):
-            outs = self._step(frame)
-            v = torch.cat([
-                torch.stack([outs.n_inliers.float(), outs.was_keyframe.float(),
-                             outs.kf_idx.float(), outs.ref_kf.float(),
-                             self.state.lost_frames.float(), outs.loop_cand.float(),
-                             outs.loop_score]),
-                outs.pose_wc.reshape(16),
-            ]).cpu().numpy()
+            step = self._step(frame)
+            outs, lost = self._slot.to_host(step) if self.capture else jit.to_host(step)
             self.host_syncs += 1
-        n_inl, was_kf, kf_idx_h, ref_kf = int(v[0]), bool(v[1] > 0.5), int(v[2]), int(v[3])
-        lost_frames_h, loop_cand_h, loop_score_h = int(v[4]), int(v[5]), float(v[6])
-        pose_wc_np = v[7:23].reshape(4, 4).astype(np.float64)
+        n_inl, was_kf, kf_idx_h, ref_kf = (int(outs.n_inliers), bool(outs.was_keyframe),
+                                           int(outs.kf_idx), int(outs.ref_kf))
+        lost_frames_h, loop_cand_h = int(lost), int(outs.loop_cand)
+        loop_score_h = float(outs.loop_score)
+        pose_wc_np = outs.pose_wc.numpy().astype(np.float64)
 
         info: Dict = {
             "frame_id": self.frame_id,
@@ -315,9 +405,10 @@ class StereoSlam:
                 info["loop"] = loop_info
         self.trajectory.append(pose_wc_np)
         # reference-keyframe anchor through the map as it stands now (a loop
-        # correction of this frame moved it), kept on the device
-        self._traj_ref.append((ref_kf, lie.SE3(self.map.kf_T_cw.R[ref_kf],
-                                               self.map.kf_T_cw.t[ref_kf])))
+        # correction of this frame moved it), kept on the device: copied, as
+        # later steps update the map in place
+        self._traj_ref.append((ref_kf, lie.SE3(self.map.kf_T_cw.R[ref_kf].clone(),
+                                               self.map.kf_T_cw.t[ref_kf].clone())))
         self.frame_id += 1
         return info
 
@@ -336,7 +427,8 @@ class StereoSlam:
         m = self.map
         j = max(int(m.n_kf) - 1, 0)
         self.host_syncs += 1
-        T_j_old = lie.SE3(m.kf_T_cw.R[j], m.kf_T_cw.t[j])
+        # copied: assigning the map below overwrites it in place
+        T_j_old = lie.SE3(m.kf_T_cw.R[j].clone(), m.kf_T_cw.t[j].clone())
         mesh = getattr(self.loop_closer, "mesh", None)
         chi2 = None
         for _ in range(cycles):
@@ -422,14 +514,16 @@ class StereoSlam:
 
     def get_map_data(self):
         """`orb_slam3_get_map_data` equivalent: keyframe graph + landmarks
-        (one read of the keyframe count)."""
+        (one read of the keyframe count), copies that later steps leave
+        alone."""
         n_kf = int(self.map.n_kf)
         self.host_syncs += 1
         return {
-            "kf_poses_T_cw": lie.SE3(self.map.kf_T_cw.R[:n_kf], self.map.kf_T_cw.t[:n_kf]),
-            "kf_frame_ids": self.map.kf_frame_id[:n_kf],
-            "landmarks": self.map.lm_pos,
-            "landmarks_valid": self.map.lm_valid,
+            "kf_poses_T_cw": lie.SE3(self.map.kf_T_cw.R[:n_kf].clone(),
+                                     self.map.kf_T_cw.t[:n_kf].clone()),
+            "kf_frame_ids": self.map.kf_frame_id[:n_kf].clone(),
+            "landmarks": self.map.lm_pos.clone(),
+            "landmarks_valid": self.map.lm_valid.clone(),
         }
 
     @property
