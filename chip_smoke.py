@@ -143,7 +143,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
      each pass, each region's calls, capture seconds and graph pool GB; then
      torch.profiler over frames 20-39 of each mode: kernels and host
      launches (kernels, graphs) a frame and the device's busy share.
-Every phase from 4 on runs StereoSlam captured, its default.
+ 18. (five lines) the active loop's other captured programs (DualEkf's
+     windows, ExplorationServer's overlay and tick, ActiveSlamSystem's
+     fusion) in phase 12's cell, ActiveSlamSystem(capture=False), then
+     capture=True twice (the second system takes the first one's graphs):
+     the EKF trajectory and P, the goals, the explorer's counts and roadmap,
+     the grid, the SLAM poses and K3's launches bit-equal; host ms a flush,
+     tick, frame and keyframe's fusion in each mode; torch.profiler over
+     flushes and ticks of each mode (kernels, host launches, the launches
+     after the tick's packed read, the flush's top kernels); the bytes a
+     captured tick copies in; each new region's capture seconds and pool
+     MB; then phase 7's G = 320 loop captured over steps 120-159.
+Every phase from 4 on runs StereoSlam, the EKF, the tick and the fusion
+captured, their default.
 Phases 5, 7, 8, 10 and 12 drive the bench's own loops (bench.timed_pass,
 bench_suite.explore_run, active_loop and ring_run) and measure them through
 the loops' ``window`` hook, so the loop a mode times is the loop a phase
@@ -153,8 +165,8 @@ pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
 gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
 loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, stage: the
 pipeline's ranks summed, bench_modes: phase 16's in-process modes,
-graft_step: one entry() step, and captured: phase 17's second captured
-pass), error, device times
+graft_step: one entry() step, captured: phase 17's second captured
+pass, and loops: phase 18's last captured pass), error, device times
 (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
@@ -1194,7 +1206,7 @@ def run_ablation(dev, n_steps=EXPLORE_STEPS):
 
 
 def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega=None, surface_z=None,
-               snapshot_at=None, twist_mux=None):
+               snapshot_at=None, twist_mux=None, capture=True):
     """bench_suite.active_loop (the active_slam and marsyard modes' loop) on
     a robot at ``start``, measured through its windows: each frame, tick and
     controller step (and, with the EKF on, the read of its estimate, as
@@ -1204,12 +1216,21 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega=None, surfa
     sites), and kernel launches. After each tick, outside the window, the
     FI oracle's value at the robot's true pose is read. After
     ``snapshot_at`` frames the coverage, goals, FI rejections and keyframes
-    are noted as ``r["snapshot"]``."""
+    are noted as ``r["snapshot"]``. The goals the explorer sends are kept
+    as ``r["goals_sent"]``; ``capture=False`` runs the eager system."""
     from fitslam_tpu_torch.models import sim_robot as sim
     from fitslam_tpu_torch.ops.grid import UNKNOWN
 
     robot = sim.DiffDriveRobot(x=start[0], y=start[1], yaw=start[2], v_max=0.8, w_max=1.0)
-    system, nav = active_system(cfg, spec, robot, dev, max_omega=max_omega, twist_mux=twist_mux)
+    system, nav = active_system(cfg, spec, robot, dev, max_omega=max_omega, twist_mux=twist_mux,
+                                capture=capture)
+    goals_sent, send_goal = [], nav.send_goal
+
+    def recording_send(goal_xy, heading):
+        goals_sent.append((np.asarray(goal_xy, np.float64).copy(), float(heading)))
+        return send_goal(goal_xy, heading)
+
+    nav.send_goal = recording_send
 
     def engine_syncs():
         return (system.slam.host_syncs + nav.host_syncs + system.explorer.host_syncs
@@ -1256,7 +1277,7 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega=None, surfa
     occ = system.occupancy().cpu().numpy()
     traj = np.array([(x, y) for x, y, _ in robot.trajectory])
     r.update(system=system, robot=robot, nav=nav, gt=gt, occ=occ, fi=fi_values, infos=infos,
-             ekf=ekf, truth=np.array(truth),
+             ekf=ekf, truth=np.array(truth), goals_sent=goals_sent,
              launches=launches, n_kf=int(system.slam.map.n_kf),
              extent=float(np.ptp(traj[:, 0]) + np.ptp(traj[:, 1])), traj=traj,
              ate=ate_world(system.slam.trajectory, gt))
@@ -3413,6 +3434,237 @@ def phase_captured(dev, smi):
     return cap2["counts"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the active loop's other captured programs
+# ---------------------------------------------------------------------------
+
+LOOP_PASSES = (False, True, True)     # eager, captured (captures), captured
+LOOP_PROFILE_CALLS = 4                # flushes / ticks a profiler window holds
+LOOP_REGIONS = ("ekf_odom", "ekf_map", "overlay", "tick", "fuse_keyframe", "fuse_grid")
+FUSION_REPS = 20                      # keyframe fusions timed a mode
+EAGER_STEP_KERNELS = 1991             # PERF.md §5: the G = 320 loop's kernels a step, eager
+
+
+def _loop_profile(system, what):
+    """torch.profiler over LOOP_PROFILE_CALLS flushes of a frame's rows
+    (``what`` "flush": odometry and IMU rates for both filters, a SLAM pose
+    for the map filter) or exploration ticks ("tick") of a finished run's
+    system: a call's host ms, kernels on the device, the host's kernel and
+    graph launches, the busy share, and for a tick the host's kernel
+    launches after its packed read."""
+    ex = system.explorer
+
+    def call():
+        if what == "flush":
+            system.ekf.add_odom(0.5, 0.0, 0.15)
+            system.ekf.add_imu(0.0, 0.0, 0.1, 0.0, gate=0.8)
+            system.ekf.add_pose(0.0, 0.0, 0.0, gate=3.0)
+            system.ekf.flush()
+        else:
+            ex.tick()
+
+    call()
+    read, after = ex._read, []
+
+    def marked_read(t):
+        v = read(t)
+        if not after:            # the tick's packed read: what follows is eager
+            after.append(torch.profiler.record_function("after_read"))
+            after[0].__enter__()
+        return v
+
+    ex._read = marked_read
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        for _ in range(LOOP_PROFILE_CALLS):
+            call()
+            if after:
+                after.pop().__exit__(None, None, None)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    ex._read = read
+    n = LOOP_PROFILE_CALLS
+    times = _kernel_times(prof)
+    times.pop("after_read", None)     # the marker's own range, not a kernel
+    busy_us = sum(t for t, _ in times.values())
+    host_k, host_g = _host_launches(prof)
+    launch = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+    def after_read(e):
+        while e is not None:
+            if e.name == "after_read":
+                return True
+            e = e.cpu_parent
+        return False
+
+    late = sum(1 for e in prof.events() if e.name in launch and after_read(e))
+    if busy_us <= 0:
+        raise AssertionError(f"[18 loops] the profiler recorded no device time in a {what}")
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
+    return dict(ms=window_s / n * 1e3, kernels=sum(c for _, c in times.values()) / n,
+                kernel_ms=busy_us / n / 1e3, host_kernels=host_k / n, host_graphs=host_g / n,
+                after_read=late / n, busy=busy_us / 1e4 / window_s,
+                top="; ".join(f"{name[:50]} {t / n:.1f} us x{c / n:.0f}"
+                              for name, (t, c) in top))
+
+
+def _fusion_ms(system, kf_idx):
+    """Host ms of one keyframe's fusion (``fuse_keyframe``, then the grid's
+    ``fuse_grid`` at the next read) on a finished run's system, its last
+    cloud fused again FUSION_REPS times, each between two synchronizes."""
+    cloud = system.clouds.points[0].clone()
+    valid = system.clouds.valid[0].clone()
+    total = 0.0
+    for _ in range(FUSION_REPS):
+        system._pending_cloud[system.slam.last_keyframe_frame_id] = (cloud, valid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system._on_keyframe(system.slam, kf_idx)
+        system.occupancy()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / FUSION_REPS * 1e3
+
+
+def phase_loops(dev, smi):
+    """[18 loops]: phase 12's cell (phase 8's active cell with the EKF on,
+    ACTIVE_BENCH_FRAMES frames on the simulation's clock) with
+    ``ActiveSlamSystem(capture=False)`` and ``capture=True`` in turns
+    (LOOP_PASSES): the EKF trajectories and final P, the goals sent, the
+    explorer's counts and roadmap, the fused grid and the SLAM poses
+    bit-equal, K3's launches equal; host ms a flush, a tick, a frame and a
+    keyframe's fusion in each mode, a profiler window of flushes and of ticks
+    in each mode, the new regions' capture seconds and pool bytes; then a
+    profiler window over steps PROFILE_WINDOW of phase 7's G = 320 loop,
+    captured. Returns the last captured pass's launches."""
+    from fitslam_tpu_torch.models.localization import TwistMux
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils import jit
+    from fitslam_tpu_torch.utils.config import FitSlamConfig
+
+    t_phase = time.monotonic()
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    cfg = ekf_config()
+    world = rooms_world(spec, dev, floor_points=4000)
+    jit.release_idle()           # the first captured pass captures here
+    passes = []
+    for i, capture in enumerate(LOOP_PASSES):
+        r = run_active(dev, cfg, spec, world.landmarks, (-5.0, -5.0, 0.3), ACTIVE_BENCH_FRAMES,
+                       twist_mux=TwistMux(), capture=capture)
+        system = r["system"]
+        passes.append(dict(r=r, capture=capture, stats=system.capture_stats,
+                           ekf=np.array([[xy[0], xy[1], yaw] for xy, yaw in r["ekf"]]),
+                           P=system.ekf.map_state.P.cpu(),
+                           roadmap=[t.cpu() for t in jit.flatten(system.explorer.roadmap)[0]],
+                           traj=np.stack(system.slam.trajectory),
+                           diag=dict(vars(system.explorer.diag))))
+        if capture and i + 1 < len(LOOP_PASSES):
+            # the next captured system takes this one's graphs
+            del system
+            for k in ("system", "nav", "robot"):
+                r.pop(k)
+    first = passes[0]
+    diffs = []
+    for p in passes[1:]:
+        a, b = first, p
+        if not np.array_equal(a["ekf"], b["ekf"]) or not torch.equal(a["P"], b["P"]):
+            diffs.append("EKF")
+        if len(a["r"]["goals_sent"]) != len(b["r"]["goals_sent"]) or any(
+                not np.array_equal(x[0], y[0]) or x[1] != y[1]
+                for x, y in zip(a["r"]["goals_sent"], b["r"]["goals_sent"])):
+            diffs.append("goals")
+        if a["diag"] != b["diag"] or any(not torch.equal(x, y)
+                                         for x, y in zip(a["roadmap"], b["roadmap"])):
+            diffs.append("explorer")
+        if not np.array_equal(a["r"]["occ"], b["r"]["occ"]):
+            diffs.append("grid")
+        if not np.array_equal(a["traj"], b["traj"]):
+            diffs.append("SLAM poses")
+        if a["r"]["launches"]["sweep"] != b["r"]["launches"]["sweep"]:
+            diffs.append("K3 launches")
+    eager, captured = passes[0], passes[-1]
+    # the last captured pass took the graphs the first one captured
+    reused = all(captured["stats"][name]["calls"] > s["calls"]
+                 and (not s["captured"] or captured["stats"][name]["capture_s"] == s["capture_s"])
+                 for name, s in passes[1]["stats"].items() if name.startswith(LOOP_REGIONS))
+    kf = int(captured["r"]["system"].slam.map.n_kf) - 1
+    fusion = {p["capture"]: _fusion_ms(p["r"]["system"], kf) for p in (eager, captured)}
+    prof = {(p["capture"], w): _loop_profile(p["r"]["system"], w)
+            for p in (eager, captured) for w in ("flush", "tick")}
+    mode = {False: "eager", True: "captured"}
+    log(f"[18 loops] phase 12's cell ({cfg.camera.width}x{cfg.camera.height}, "
+        f"{ACTIVE_BENCH_FRAMES} frames, EKF on, SimClock), passes "
+        + ", ".join(mode[p["capture"]] for p in passes)
+        + f": bit-equal EKF trajectory and P, goals, explorer counts and roadmap, fused grid, "
+        f"SLAM poses and K3 launches: {not diffs} {diffs or ''}; "
+        f"{len(first['r']['goals_sent'])} goals, {first['diag']['ticks']} ticks, K3 "
+        f"{first['r']['launches']['sweep']} launches; host ms "
+        + "; ".join(f"{mode[p['capture']]} a flush {_per(p['r'], 'pose', 's') * 1e3:.2f}, a tick "
+                    f"{_per(p['r'], 'tick', 's') * 1e3:.2f}, a frame "
+                    f"{_per(p['r'], 'frame', 's') * 1e3:.2f}, a controller step "
+                    f"{_per(p['r'], 'ctrl', 's') * 1e3:.2f}" for p in passes)
+        + f"; a keyframe's fusion eager {fusion[False]:.3f}, captured {fusion[True]:.3f}; the "
+        f"last captured system took the first one's graphs: {reused}; {smi}")
+    log("[18 loops] torch.profiler, a call: "
+        + "; ".join(f"{mode[c]} {w} {v['ms']:.3f} host ms, {v['kernels']:.1f} kernels on the "
+                    f"device ({v['kernel_ms']:.3f} ms, busy {v['busy']:.2f} %), host launches "
+                    f"{v['host_kernels']:.1f} kernels + {v['host_graphs']:.1f} graphs"
+                    + (f", {v['after_read']:.1f} kernel launches after the read"
+                       if w == "tick" else "")
+                    for (c, w), v in prof.items())
+        + f"; {smi}")
+    log(f"[18 loops] the captured flush's top kernels a flush (the solves' backend): "
+        f"{prof[(True, 'flush')]['top']}; the captured tick's: {prof[(True, 'tick')]['top']}")
+    # what a captured tick copies into its static inputs: the arguments
+    # its slot does not own (the grid, the staged host values, the keyframe
+    # poses and the FI oracle's landmark map)
+    ex = captured["r"]["system"].explorer
+    region = next(r for name, r in ex._slot_state.slot.regions.items() if name.startswith("tick"))
+    copied = [x for x in region.static_in if not ex._slot_state.slot.owns(x)]
+    lm = captured["r"]["system"].slam.map.lm_pos
+    log(f"[18 loops] a captured tick copies {sum(x.nbytes for x in copied)} bytes into its "
+        f"static inputs ({len(copied)} tensors; the landmark map's positions and validity "
+        f"{lm.nbytes + lm.shape[0]} of them)")
+    stats = passes[1]["stats"]
+    new = {name: s for name, s in stats.items() if name.startswith(LOOP_REGIONS)}
+    log("[18 loops] new regions (calls in the capturing pass, capture s, graph pool MB): "
+        + "; ".join(f"{name} {s['calls']}, "
+                    + ("not captured" if not s["captured"] else
+                       f"{s['capture_s']:.3f} s, {s['pool_bytes'] / 1e6:.2f} MB")
+                    for name, s in new.items())
+        + f"; {smi}")
+    # phase 7's loop at G = 320, captured: a profiler window as --profile takes it
+    rcfg = FitSlamConfig.preset("rapid")
+    g_spec = GridSpec2D(320, rcfg.traversability.resolution, -40.0, -40.0)
+    g = explore(dev, g_spec, rcfg, (-37.0, -37.0), PROFILE_WINDOW[1] + 1, PROFILE_WINDOW)
+    n = PROFILE_WINDOW[1] - PROFILE_WINDOW[0]
+    times = _kernel_times(g["prof"])
+    busy_us = sum(t for t, _ in times.values())
+    host_k, host_g = _host_launches(g["prof"])
+    log(f"[18 loops] phase 7's G=320 loop captured, steps {PROFILE_WINDOW[0]}-"
+        f"{PROFILE_WINDOW[1] - 1}: {sum(c for _, c in times.values()) / n:.1f} kernels a step on "
+        f"the device (eager: {EAGER_STEP_KERNELS}, PERF.md §5), host launches a step "
+        f"{host_k / n:.1f} kernels + {host_g / n:.1f} graphs, busy "
+        f"{busy_us / 1e4 / g['window_s']:.2f} %; ms/tick {g['tick_s'] / max(g['tick_n'], 1) * 1e3:.2f}"
+        f" over steps 0-{PROFILE_WINDOW[1] - 1}; phase {time.monotonic() - t_phase:.1f} s; {smi}")
+    if diffs:
+        raise AssertionError(f"[18 loops] captured and eager differ: {diffs}")
+    missing = [n for n in LOOP_REGIONS if not any(k.startswith(n) and s["captured"]
+                                                   for k, s in new.items())]
+    if missing or not reused:
+        raise AssertionError(f"[18 loops] regions not captured: {missing}, or captured again "
+                             f"({reused})")
+    if first["r"]["launches"]["sweep"] <= 0 or not first["r"]["goals_sent"]:
+        raise AssertionError("[18 loops] the run launched no K3 or sent no goal")
+    if prof[(True, "tick")]["host_graphs"] <= 0 or prof[(True, "flush")]["host_graphs"] <= 0:
+        raise AssertionError("[18 loops] the profiler saw no graph launch")
+    _check_windows(captured["r"], "[18 loops]")
+    return captured["r"]["launches"]
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -3548,6 +3800,7 @@ def main() -> int:
     paths["stage"] = phase_parallel(dev, loop, active)
     paths["bench_modes"], paths["graft_step"] = phase_bench_entry(dev, bench_fps)
     paths["captured"] = phase_captured(dev, smi)
+    paths["loops"] = phase_loops(dev, smi)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just
@@ -3574,7 +3827,7 @@ def main() -> int:
          "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": paths["explore"]["sweep"],
          "launches_by_path": by_path("sweep"), **k3},
     ]
-    log(f"[done] phases 1-17 in {time.monotonic() - t_script:.1f} s")
+    log(f"[done] phases 1-18 in {time.monotonic() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

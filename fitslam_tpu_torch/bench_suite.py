@@ -456,12 +456,13 @@ def rooms_world(spec, device, floor_points: int = 4000):
                                           device=device)
 
 
-def active_system(cfg, spec, robot, device, max_omega=None, twist_mux=None):
+def active_system(cfg, spec, robot, device, max_omega=None, twist_mux=None, capture=True):
     """An ActiveSlamSystem over a simulated robot and its SimNavInterface
     (0.15 s a controller step), scheduled on the simulation's clock (a
     ``SimClock``), not the host's: on the host's clock the roadmap's periodic
     cleanup falls on other steps on a faster or slower host, and the run's
-    goals and path differ. Returns (system, nav)."""
+    goals and path differ. ``capture=False`` builds the eager system.
+    Returns (system, nav)."""
     from fitslam_tpu_torch.models.active_slam import ActiveSlamSystem
     from fitslam_tpu_torch.models.sim_nav import SimNavInterface
     from fitslam_tpu_torch.utils.profiling import SimClock
@@ -472,7 +473,8 @@ def active_system(cfg, spec, robot, device, max_omega=None, twist_mux=None):
     if max_omega is not None:
         nav.controller.max_omega = max_omega
     system = ActiveSlamSystem(cfg, spec, nav, device=device, event_logger=SimClock(),
-                              get_robot_pose=lambda: box["s"].estimated_robot_pose())
+                              get_robot_pose=lambda: box["s"].estimated_robot_pose(),
+                              capture=capture)
     box["s"] = system
     return system, nav
 

@@ -21,10 +21,22 @@ SLAM pose or the EKF estimate when the explorer asks for the robot's pose,
 the anchor's matrix once, and ``fisher_information_of_pose``'s float) are
 counted in ``host_syncs``, the EKF's flushes among them; the device oracle's
 value folds into the tick's one packed read.
+
+With ``capture`` (the default) the loop's compiled programs run captured
+(``utils/jit.py``; CUDA graphs on a CUDA device): the frame step
+(``StereoSlam``), the EKF's windows (``DualEkf``), the exploration tick
+(``ExplorationServer``, the FI oracle's device work inside it) and the
+traversability fusion, as two regions of this object's slot:
+``fuse_keyframe`` (a keyframe's cloud into the buffer and the running
+per-cell statistics) and ``fuse_grid`` (statistics to the thresholded grid).
+``clouds``, the statistics and the grid live in the slot's buffers; the
+re-stitch after a loop closure stays eager. ``capture=False`` runs every
+region as plain PyTorch: the eager path that captured runs are held to.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import replace
 from typing import Dict, Optional, Tuple
@@ -33,28 +45,83 @@ import numpy as np
 import torch
 
 from fitslam_tpu_torch.models import localization as loc
-from fitslam_tpu_torch.models.exploration import ExplorationServer
+from fitslam_tpu_torch.models import slam_map as sm
+from fitslam_tpu_torch.models.exploration import ExplorationServer, FiOracle
 from fitslam_tpu_torch.models.slam import StereoSlam
 from fitslam_tpu_torch.ops import fisher, lie
 from fitslam_tpu_torch.ops import grid as gridops
 from fitslam_tpu_torch.ops.grid import GridSpec2D
+from fitslam_tpu_torch.utils import jit
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 from fitslam_tpu_torch.utils.transfer import upload
 
 
-def camera_pose_from_robot(x: float, y: float, yaw: float, height: float = 0.8,
-                           device="cuda") -> lie.SE3:
-    """World-from-camera pose: camera at robot position, +z forward along
-    yaw, y-down optical convention. Built in float32 on the host (the
-    reference's arithmetic) and sent up in one copy that never waits."""
+def camera_pose_values(x: float, y: float, yaw: float, height: float = 0.8) -> np.ndarray:
+    """World-from-camera pose of a robot pose as 12 float32 values (R_wc
+    row-major, then t): camera at robot position, +z forward along yaw,
+    y-down optical convention, built on the host in the reference's
+    arithmetic."""
     fwd = np.array([math.cos(yaw), math.sin(yaw), 0.0], np.float32)
     down = np.array([0.0, 0.0, -1.0], np.float32)
     right = np.cross(down, fwd)
     R_wc = np.stack([right, down, fwd], axis=-1)
-    t = np.array([x, y, height], np.float32)
-    v = upload(np.concatenate([R_wc.reshape(9), t]), device)
-    return lie.SE3(v[:9].reshape(3, 3), v[9:])
+    return np.concatenate([R_wc.reshape(9), np.array([x, y, height], np.float32)])
+
+
+def _pose_from_values(v: torch.Tensor) -> lie.SE3:
+    return lie.SE3(v[:9].reshape(3, 3), v[9:12])
+
+
+def camera_pose_from_robot(x: float, y: float, yaw: float, height: float = 0.8,
+                           device="cuda") -> lie.SE3:
+    """``camera_pose_values`` as an SE3 on ``device``, sent up in one copy
+    that never waits."""
+    return _pose_from_values(upload(camera_pose_values(x, y, yaw, height), device))
+
+
+def pose_information_at(inputs, pose: torch.Tensor, *, max_distance: float, noise_var: float,
+                        saturation_exponent: float, width: int, height: int) -> torch.Tensor:
+    """isPoseSafe's information scalar (0-d) at the world-from-camera pose
+    ``pose`` (``camera_pose_values``' layout, on the device), from the
+    ``inputs`` (landmark positions, validity, intrinsics, world anchor or
+    None) of ``ActiveSlamSystem.fi_inputs``."""
+    lm_pos, lm_valid, K, anchor = inputs
+    T_wc = _pose_from_values(pose)
+    if anchor is not None:
+        # the landmark map lives in the SLAM (first-camera) frame: convert
+        # the world-frame query pose before frustum culling
+        T_wc = lie.compose(lie.inverse(anchor), T_wc)
+    p_c, ok = sm.points_in_view(lm_pos, lm_valid, K, T_wc, max_distance, width, height)
+    return fisher.pose_information(p_c, ok, noise_var=noise_var, max_distance=max_distance,
+                                   saturation_exponent=saturation_exponent)
+
+
+def fuse_keyframe_region(clouds, stats, cloud_c, valid, kf_idx, kf_T_cw, anchor, *,
+                         spec: GridSpec2D, scatter: bool):
+    """Region ``fuse_keyframe``: a keyframe's camera-frame cloud into the
+    cloud buffer and, with ``scatter``, through the keyframe's current
+    world-anchored pose into the running per-cell statistics (the
+    incremental path). ``kf_idx`` is a 0-d int32. Writes the buffer and the
+    statistics."""
+    clouds = gridops.add_cloud(clouds, cloud_c, valid, kf_idx)
+    if not scatter:
+        return (clouds,), ()
+    T_cw = kf_T_cw if anchor is None else lie.compose(kf_T_cw, lie.inverse(anchor))
+    i = kf_idx.reshape(1).long()      # a 1-d index: a 0-d one would read it back
+    T_kf = lie.SE3(T_cw.R.index_select(0, i)[0], T_cw.t.index_select(0, i)[0])
+    return (clouds, gridops.scatter_cloud_stats(spec, stats, cloud_c, valid, T_kf)), ()
+
+
+def fuse_grid_region(stats, occ, *, spec: GridSpec2D, max_slope, ground_clearance,
+                     robot_height, security_distance, lethal_threshold):
+    """Region ``fuse_grid``: the per-cell statistics to the thresholded
+    traversability grid. Writes the grid."""
+    grid = gridops.grid_from_stats(spec, stats, max_slope=max_slope,
+                                   ground_clearance=ground_clearance,
+                                   robot_height=robot_height,
+                                   security_distance=security_distance)
+    return (None, gridops.threshold_grid(grid, lethal_threshold)), ()
 
 
 class ActiveSlamSystem:
@@ -70,10 +137,12 @@ class ActiveSlamSystem:
         event_logger: Optional[EventLogger] = None,
         peer_goals=None,          # () -> [peer goal xy] (multi-robot sharing)
         device="cuda",
+        capture: bool = True,
     ):
         self.cfg = cfg
         self.spec = spec
         self.device = torch.device(device)
+        self.capture = capture
         self.log = event_logger or EventLogger(time_tier=MODULE)
         lcfg = cfg.localization
         # without the EKF, frames take the asynchronous step, which never
@@ -82,7 +151,7 @@ class ActiveSlamSystem:
         # config says; the EKF's synchronous path keeps the config's setting
         slam_cfg = cfg if lcfg.enabled else replace(
             cfg, tracking=replace(cfg.tracking, reloc_enabled=False))
-        self.slam = StereoSlam(slam_cfg, self.device, event_logger=self.log)
+        self.slam = StereoSlam(slam_cfg, self.device, event_logger=self.log, capture=capture)
         self._host_syncs = 0      # this object's own device->host reads
 
         # state-estimation layer (N5, ekf_with_gps.yaml/twist_mux.yaml): the
@@ -91,7 +160,7 @@ class ActiveSlamSystem:
         # when enabled its map-frame estimate IS the robot pose source
         self.ekf: Optional[loc.DualEkf] = None
         if lcfg.enabled:
-            self.ekf = loc.DualEkf(device=self.device)
+            self.ekf = loc.DualEkf(device=self.device, capture=capture)
             self._ekf_dirty = False
             self._slam_fuse_counter = 0
             # the nav layer's executed twists feed the odometry input
@@ -101,16 +170,25 @@ class ActiveSlamSystem:
                 nav.on_cmd = self.observe_odometry
 
         tcfg = cfg.traversability
-        self.clouds = gridops.empty_cloud_buffer(tcfg.max_clouds, tcfg.max_points_per_cloud,
-                                                 self.device)
-        self._occ = torch.full((spec.size, spec.size), gridops.UNKNOWN, dtype=torch.uint8,
-                               device=self.device)
+        # fusion state: the cloud buffer; incremental-fusion state
+        # (is_kf_optimization_enabled semantics, SURVEY.md §3.4): running
+        # per-cell aggregates absorb each keyframe cloud as it arrives;
+        # `_restitch` forces a full re-fuse of the whole buffer through
+        # CURRENT keyframe poses (loop closure moved them); the grid. They
+        # move into a slot of this configuration and grid (``utils/jit.py``)
+        # at the fusion's first region; the grid is a new view after each
+        # re-fuse, as the costmaps cache their composed grid against its
+        # identity
+        key = ("ActiveSlamSystem", repr(cfg), spec)
+        self._slot_state = jit.SlotState(self, key, self.device, {
+            "clouds": gridops.empty_cloud_buffer(tcfg.max_clouds, tcfg.max_points_per_cloud,
+                                                 self.device),
+            "stats": gridops.empty_cell_stats(spec, self.device),
+            "occ": torch.full((spec.size, spec.size), gridops.UNKNOWN, dtype=torch.uint8,
+                              device=self.device),
+            "kf_idx": torch.zeros((), dtype=torch.int32, device=self.device),
+        }, capture, fresh=("occ",))
         self._grid_dirty = True
-        # incremental-fusion state (is_kf_optimization_enabled semantics,
-        # SURVEY.md §3.4): running per-cell aggregates absorb each keyframe
-        # cloud as it arrives; `_restitch` forces a full re-fuse of the whole
-        # buffer through CURRENT keyframe poses (loop closure moved them)
-        self._fstats = gridops.empty_cell_stats(spec, self.device)
         self._restitch = False
         self.slam.keyframe_events.append(self._on_keyframe)
         # per-frame clouds awaiting keyframe association, keyed by frame id
@@ -130,13 +208,35 @@ class ActiveSlamSystem:
             nav=nav,
             get_robot_pose=get_robot_pose,
             fi_oracle=self.fisher_information_of_pose,
-            fi_oracle_device=self.fisher_information_of_pose_device,
+            fi_oracle_device=FiOracle(
+                lambda xy, yaw: camera_pose_values(xy[0], xy[1], yaw), self.fi_inputs,
+                self._fi_value(exhaustive=False)),
             get_kf_poses=self.kf_poses_world,
             event_logger=self.log,
             get_landmarks=self.landmark_map_world,
             peer_goals=peer_goals,
             device=self.device,
+            capture=capture,
         )
+
+    # ------------------------------------------------------------------
+    # Fusion state and its buffers
+    # ------------------------------------------------------------------
+
+    clouds = jit.slot_field(doc="The keyframe cloud buffer; with capture, the slot's buffers.")
+    _fstats = jit.slot_field("stats")
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes} of
+        every captured region of the loop (the frame step's, the EKF's, the
+        tick's and the fusion's); empty on the eager path."""
+        stats = dict(self.slam.capture_stats)
+        if self.ekf is not None:
+            stats.update(self.ekf.capture_stats)
+        stats.update(self.explorer.capture_stats)
+        stats.update(self._slot_state.stats())
+        return stats
 
     # ------------------------------------------------------------------
     # Frame anchoring
@@ -295,22 +395,26 @@ class ActiveSlamSystem:
         for k in [k for k in self._pending_cloud
                   if k < slam.last_keyframe_frame_id]:
             del self._pending_cloud[k]
-        self.clouds = gridops.add_cloud(self.clouds, cloud_c, valid, kf_idx)
-        if not self._restitch:
-            # incremental path: scatter ONLY this cloud into the running
-            # aggregates through the keyframe's current (world-anchored)
-            # pose; a pending re-stitch supersedes it
-            kf_T_cw_world, _ = self.kf_poses_world()
-            T_kf = lie.SE3(kf_T_cw_world.R[kf_idx], kf_T_cw_world.t[kf_idx])
-            self._fstats = gridops.scatter_cloud_stats(
-                self.spec, self._fstats, cloud_c, valid, T_kf)
+        # the incremental path scatters ONLY this cloud into the running
+        # aggregates through the keyframe's current (world-anchored) pose; a
+        # pending re-stitch supersedes it
+        m = self.slam.map
+        kf = self._slot_state.fill("kf_idx", kf_idx)
+        fn = functools.partial(fuse_keyframe_region, spec=self.spec, scatter=not self._restitch)
+        name = "fuse_keyframe" if not self._restitch else "add_cloud"
+        if self.T_anchor is None:
+            name += "/unanchored"
+        (self.clouds, self._fstats, *_), _ = self._slot_state.run(
+            name, fn, self.clouds, self._fstats, cloud_c, valid, kf, m.kf_T_cw, self.T_anchor)
         self._grid_dirty = True
 
     def occupancy(self) -> torch.Tensor:
         """Thresholded traversability grid (the /traversability_thresholded
         topic equivalent). Per-keyframe updates are incremental; a full
         re-stitch through current keyframe poses happens only after loop
-        corrections (`_restitch`)."""
+        corrections (`_restitch`). With capture the grid is the slot's
+        buffer, returned as a new view after each re-fuse: the costmaps
+        cache their composed grid against its identity."""
         if self._restitch:
             with self.log.scope("traversability.restitch", MODULE):
                 # keyframe poses must be world-anchored: the grid's z axis is
@@ -323,40 +427,45 @@ class ActiveSlamSystem:
         if self._grid_dirty:
             with self.log.scope("traversability.fuse", MODULE):
                 tcfg = self.cfg.traversability
-                grid = gridops.grid_from_stats(
-                    self.spec, self._fstats,
-                    max_slope=tcfg.max_slope,
-                    ground_clearance=tcfg.ground_clearance,
-                    robot_height=tcfg.robot_height,
+                fn = functools.partial(
+                    fuse_grid_region, spec=self.spec, max_slope=tcfg.max_slope,
+                    ground_clearance=tcfg.ground_clearance, robot_height=tcfg.robot_height,
                     security_distance=tcfg.security_distance,
-                )
-                self._occ = gridops.threshold_grid(grid, tcfg.lethal_threshold)
+                    lethal_threshold=tcfg.lethal_threshold)
+                if self.capture:
+                    self._slot_state.claim()     # the region then reads its buffers
+                (_, self._slot_state["occ"]), _ = self._slot_state.run(
+                    "fuse_grid", fn, self._fstats, self._slot_state["occ"])
             self._grid_dirty = False
-        return self._occ
+        return self._slot_state["occ"]
 
     # ------------------------------------------------------------------
     # Fisher-information oracle (the reference's isPoseSafe, §3.3)
     # ------------------------------------------------------------------
 
+    def fi_inputs(self):
+        """The device tensors the FI oracle reads: the landmark map's
+        positions and validity, the intrinsics and the world anchor (None
+        before one is set)."""
+        m = self.slam.map
+        return m.lm_pos, m.lm_valid, self.slam.K, self.T_anchor
+
+    def _fi_value(self, exhaustive: bool):
+        """``pose_information_at`` with this configuration's settings."""
+        fcfg = self.cfg.fisher_information
+        return functools.partial(
+            pose_information_at,
+            max_distance=fcfg.max_landmark_distance * (2.0 if exhaustive else 1.0),
+            noise_var=fcfg.measurement_noise, saturation_exponent=fcfg.saturation_exponent,
+            width=self.cfg.camera.width, height=self.cfg.camera.height)
+
     def fisher_information_of_pose_device(self, robot_xy, robot_yaw,
                                           exhaustive: bool = False) -> torch.Tensor:
-        """isPoseSafe's information scalar as a 0-d DEVICE tensor: the
-        exploration tick folds it into its one packed read
-        (FisherInfoManager.cpp:39-115)."""
-        fcfg = self.cfg.fisher_information
-        T_wc = camera_pose_from_robot(robot_xy[0], robot_xy[1], robot_yaw, device=self.device)
-        if self.T_anchor is not None:
-            # the landmark map lives in the SLAM (first-camera) frame: convert
-            # the world-frame query pose before frustum culling
-            T_wc = lie.compose(lie.inverse(self.T_anchor), T_wc)
-        max_d = fcfg.max_landmark_distance * (2.0 if exhaustive else 1.0)
-        p_c, ok = self.slam.get_landmarks_in_view(T_wc, max_distance=max_d)
-        return fisher.pose_information(
-            p_c, ok,
-            noise_var=fcfg.measurement_noise,
-            max_distance=max_d,
-            saturation_exponent=fcfg.saturation_exponent,
-        )
+        """isPoseSafe's information scalar as a 0-d DEVICE tensor, eagerly:
+        the exploration tick computes it inside its region and folds it into
+        its one packed read (FisherInfoManager.cpp:39-115)."""
+        pose = upload(camera_pose_values(robot_xy[0], robot_xy[1], robot_yaw), self.device)
+        return self._fi_value(exhaustive)(self.fi_inputs(), pose)
 
     def fisher_information_of_pose(self, robot_xy, robot_yaw,
                                    exhaustive: bool = False) -> float:

@@ -68,6 +68,7 @@ def assign_costs(
     closeness_rejection: float = 0.5,
     methods: Tuple[str, ...] = ("RoadmapPlannerDistance", "ArrivalInformation"),
     rng_key: np.ndarray | None = None,     # (2,) uint32 for the RandomCosts ablation
+    random_weights: torch.Tensor | None = None,  # (F,) the RandomCosts draw, on the device
 ) -> FrontierCosts:
     """Full cost pipeline for all frontiers at once.
 
@@ -75,8 +76,10 @@ def assign_costs(
     roadmap distance + arrival information; the ablation baselines are
     "RandomCosts" (a uniform random cost per frontier, the reference's
     ``jax.random`` draw reproduced bit for bit on the host by
-    ``utils/prng.py`` and uploaded once) and "ClosestFrontier" (pure
-    Euclidean distance); exclusion rules still apply in every mode."""
+    ``utils/prng.py`` and uploaded once, or given as ``random_weights``:
+    ``random_draw``'s values, which a captured region takes as an input) and
+    "ClosestFrontier" (pure Euclidean distance); exclusion rules still apply
+    in every mode."""
     F = fr.valid.shape[0]
 
     heading, info = raycast.arrival_information(
@@ -130,8 +133,8 @@ def assign_costs(
     if "RandomCosts" in methods:
         # setRandomMetaData: every frontier gets a uniform random cost, the
         # lower bound for method comparison
-        key = prng.prng_key(0) if rng_key is None else rng_key
-        weighted = upload(prng.uniform(key, (F,), 1.0, 100.0), occ.device)
+        weighted = (upload(random_draw(rng_key, F), occ.device) if random_weights is None
+                    else random_weights)
         u = 1.0 / weighted
     elif "ClosestFrontier" in methods:
         # setClosestFrontierMetaData: greedy nearest-frontier
@@ -157,6 +160,12 @@ def assign_costs(
         node_idx=node.to(torch.int32),
         path_fi=path_fi,
     )
+
+
+def random_draw(rng_key: np.ndarray | None, n: int) -> np.ndarray:
+    """RandomCosts' (n,) uniform costs in [1, 100) from ``rng_key`` (key 0
+    when None), drawn on the host as ``jax.random.uniform`` draws them."""
+    return prng.uniform(prng.prng_key(0) if rng_key is None else rng_key, (n,), 1.0, 100.0)
 
 
 # ---------------------------------------------------------------------------

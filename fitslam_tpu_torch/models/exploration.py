@@ -19,14 +19,31 @@ reads back at the reference's points only (one packed pull per tick, one for
 the published path and one for its line-of-sight mask), each counted in
 ``host_syncs``. Host values go up with ``utils.transfer.upload``, which
 never waits.
+
+A tick's device work up to its packed pull runs as two captured programs
+(``utils/jit.py``; CUDA graphs on a CUDA device), the counterpart of the
+reference's chain of compiled programs: ``overlay`` (the aged lethal overlay
+on the grid) and ``tick`` (roadmap upkeep, frontier search, shortest paths,
+the blacklist mask, the wavefront potential, costs, the TSP, the device
+oracle's FI scalar and the packed scalars). The tick's host values (robot
+pose, previous goal, search radius, blacklist circles, the oracle's query
+pose, RandomCosts' draw) reach it as one staged input. The configuration's
+branches are fixed by the slot's key; the host's (the CleanupRoadmap clock,
+the FI retry ladder's exhaustive rung, a boundary, the wired callbacks) name
+variants of ``tick``. ``roadmap``, ``lethal_overlay`` and ``wedge_age``
+live in the slot's buffers, updated in place; assigning any of them copies
+into the buffer. What follows the pull (the published path, dispatch, the
+FI retry ladder), recovery, bootstrap and blacklist eviction stay eager.
+``capture=False`` runs the same regions as plain PyTorch.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from enum import Enum
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +55,7 @@ from fitslam_tpu_torch.ops import fisher
 from fitslam_tpu_torch.ops import frontier as fx
 from fitslam_tpu_torch.ops import lie, raycast
 from fitslam_tpu_torch.ops.grid import UNKNOWN, GridSpec2D
+from fitslam_tpu_torch.utils import jit
 from fitslam_tpu_torch.utils import logging as logx
 from fitslam_tpu_torch.utils import prng
 from fitslam_tpu_torch.utils.config import FitSlamConfig
@@ -65,6 +83,123 @@ def _pack_tick_scalars(spec, occ, fr_valid, fr_goal_xy, best_heading,
         (fi_value.to(f32).reshape(1) if isinstance(fi_value, torch.Tensor)
          else torch.full((1,), fi_value, dtype=f32, device=occ.device)),
     ])
+
+
+class FiOracle(NamedTuple):
+    """A device Fisher-information oracle in the three parts a captured tick
+    needs: ``pose(robot_xy, robot_yaw)`` is the query's host values (a
+    float32 numpy vector), ``inputs()`` the tree of device tensors it reads,
+    and ``value(inputs, pose values on the device)`` the information as a
+    0-d tensor, a function of tensors alone (it keeps no reference to its
+    owner: a slot may outlive it)."""
+
+    pose: Callable[[np.ndarray, float], np.ndarray]
+    inputs: Callable[[], Any]
+    value: Callable[[Any, torch.Tensor], torch.Tensor]
+
+
+BLACKLIST_CAP = 64       # the tick's fixed-capacity blacklist circle buffer
+_NO_FI = -1e30           # the packed FI slot when no device oracle is wired
+
+
+def overlay_region(occ, lethal_overlay, wedge_age, tick, *, ttl):
+    """Region ``overlay``: the effective lethal overlay (durable blacklist
+    cells OR still-fresh aged FI wedges at tick ``tick``, a 0-d int32)
+    applied to the grid."""
+    active = navx.age_overlay_active(wedge_age, tick, ttl)
+    return (), navx.apply_overlay(occ, lethal_overlay | active)
+
+
+def tick_region(occ, roadmap, host, kf_T_cw, n_kf, landmarks, fi_inputs, boundary, *,
+                spec: GridSpec2D, cfg: FitSlamConfig, reanchor: bool, fi_value):
+    """Region ``tick``: the tick's device work from the overlaid grid to the
+    packed scalars. ``host`` is the staged host vector ([robot xy, previous
+    goal xy, search radius, blacklist circles, the oracle's query pose when
+    ``fi_value`` is given, RandomCosts' draw when configured]); ``landmarks``
+    (xy, info, valid) turns path FI on. Writes the roadmap; returns (packed
+    scalars, the robot row's BF parents, its BF source node)."""
+    rcfg, fscfg, fcfg = cfg.roadmap, cfg.frontier_search, cfg.fisher_information
+    dev = occ.device
+    robot = host[0:2]
+    prev_goal = host[2:4]
+    o = 5 + 3 * BLACKLIST_CAP
+    circles = host[5:o].reshape(BLACKLIST_CAP, 3)
+
+    # -- roadmap upkeep: the robot pose as a node, CleanupRoadmap's
+    # loop-closure correction when its period is up, the edges --
+    roadmap = rmx.add_nodes(roadmap, robot[None, :], torch.ones((1,), dtype=torch.bool, device=dev),
+                            torch.zeros((1,), dtype=torch.bool, device=dev),
+                            kf_T_cw, n_kf, rcfg.min_node_separation)
+    if reanchor:
+        roadmap = rmx.reanchor_nodes(roadmap, kf_T_cw)
+    roadmap = rmx.connect_edges(roadmap, spec, occ, rcfg.max_edge_length,
+                                rcfg.max_unknown_fraction)
+
+    # -- frontier search (SearchForFrontiers) --
+    fr = fx.extract_frontiers(spec, occ, robot, host[4], max_cells=4096,
+                              max_frontiers=fscfg.max_frontiers,
+                              max_cluster_size=fscfg.max_frontier_cluster_size,
+                              min_cluster_size=fscfg.min_frontier_cluster_size,
+                              cc_iters=fscfg.cc_iters, boundary=boundary)
+
+    # -- costs --
+    robot_dist, _, _ = rmx.shortest_paths(roadmap, robot)
+    blacklisted = cx.blacklist_mask(fr.goal_xy, circles)
+    pot = navx.wavefront_potential(spec, navx.clear_robot_footprint(spec, occ, robot), robot,
+                                   iters=cfg.nav.wavefront_iters, allow_unknown=True)
+    # fisher_information_in_path per frontier (E4/E5): mean FOV landmark
+    # information along each approach segment
+    path_fi = None
+    if landmarks is not None:
+        lm_xy, lm_info, lm_valid = landmarks
+        path_fi = fisher.path_information(
+            lm_xy.to(torch.float32), lm_info.to(torch.float32), lm_valid.to(torch.bool),
+            robot, fr.goal_xy, fr.valid, num_waypoints=fcfg.path_fi_waypoints,
+            fov_half_angle=fcfg.fov_half_angle, max_range=fcfg.max_landmark_distance)
+    methods = tuple(cfg.cost_assigner.cost_calculation_methods)
+    o_draw = o + (12 if fi_value is not None else 0)
+    costs = cx.assign_costs(
+        spec, occ, fr, roadmap.xy, roadmap.valid, robot_dist, blacklisted,
+        methods=methods,
+        random_weights=(host[o_draw:o_draw + fscfg.max_frontiers]
+                        if "RandomCosts" in methods else None),
+        alpha=cfg.cost_assigner.alpha,
+        beta=cfg.cost_assigner.beta,
+        v_max=cfg.cost_assigner.max_linear_velocity,
+        w_max=cfg.cost_assigner.max_angular_velocity,
+        grid_pot=pot,
+        path_fi=path_fi,
+        min_path_info=fcfg.min_path_information,
+        robot_xy=robot,
+        closeness_rejection=cfg.cost_calculator.closeness_rejection_m,
+        factor_of_max_info=cfg.cost_calculator.factor_of_max_info,
+        raycast_depth_m=cfg.cost_calculator.raycast_depth_m,
+    )
+
+    # -- full path optimization (TSP): frontier nodes join the roadmap AND
+    # get edges before the TSP prices legs over them; node snaps are then
+    # refreshed so TSP legs route through the just-connected nodes --
+    roadmap = rmx.add_nodes(roadmap, fr.goal_xy, fr.valid, torch.ones_like(fr.valid),
+                            kf_T_cw, n_kf, rcfg.min_node_separation)
+    roadmap = rmx.connect_edges(roadmap, spec, occ, rcfg.max_edge_length,
+                                rcfg.max_unknown_fraction)
+    costs = costs._replace(node_idx=cx.snap_to_nodes(fr.goal_xy, roadmap.xy, roadmap.valid))
+    sel, sel_valid, g_idx = cx.select_locals(costs, fr, blacklisted,
+                                             cfg.path_optimizer.local_path_threshold_m)
+    # all BF rows (robot + every selected local) in ONE batched pass:
+    # pairwise row 0 = robot, rows 1.. = locals in selection order
+    srcs = cx.make_bf_sources(robot, fr.goal_xy, sel)
+    dists, parents, src_nodes = rmx.shortest_paths_multi(roadmap, srcs)
+    g_node = cx.global_node(costs.node_idx, g_idx)
+    plan = cx.optimize_full_path(costs, fr, blacklisted, dists, sel, sel_valid, g_node)
+    # closest-global fallback applied branchlessly on the device
+    has_goal, goal_idx = cx.finalize_goal(plan.has_goal, plan.goal_idx, g_idx)
+
+    # the FI gate's scalar, prefetched into the same pull
+    fi = _NO_FI if fi_value is None else fi_value(fi_inputs, host[o:o + 12])
+    vals = _pack_tick_scalars(spec, occ, fr.valid, fr.goal_xy, costs.best_heading,
+                              has_goal, goal_idx, prev_goal, fi)
+    return (None, roadmap), (vals, parents[0], src_nodes[0])
 
 
 class GoalStatus(Enum):
@@ -127,13 +262,13 @@ class ExplorationServer:
         nav: NavInterface,
         get_robot_pose: Callable[[], Tuple[np.ndarray, float]],
         fi_oracle: Optional[Callable[[np.ndarray, float, bool], float]] = None,
-        fi_oracle_device: Optional[Callable[[np.ndarray, float, bool],
-                                            torch.Tensor]] = None,
+        fi_oracle_device: Optional[FiOracle] = None,
         get_kf_poses: Optional[Callable[[], Tuple]] = None,
         event_logger: Optional[EventLogger] = None,
         peer_goals: Optional[Callable[[], List[np.ndarray]]] = None,
         get_landmarks: Optional[Callable[[], Tuple]] = None,
         device="cuda",
+        capture: bool = True,
     ):
         self.cfg = cfg
         self.spec = spec
@@ -143,7 +278,8 @@ class ExplorationServer:
         self.get_robot_pose = get_robot_pose
         self.fi_oracle = fi_oracle
         # device-value variant of the oracle: its scalar folds into the
-        # tick's ONE packed pull instead of costing its own readback
+        # tick's ONE packed pull instead of costing its own readback, and
+        # its device work runs inside the tick's region
         self.fi_oracle_device = fi_oracle_device
         self.get_kf_poses = get_kf_poses
         # landmark map accessor for fisher_information_in_path: () ->
@@ -154,18 +290,28 @@ class ExplorationServer:
         self.peer_goals = peer_goals
         self.log = event_logger or EventLogger(time_tier=MODULE)
         self.host_syncs = 0          # device->host reads so far
+        self.capture = capture
 
         rcfg = cfg.roadmap
-        self.roadmap = rmx.empty_roadmap(rcfg.max_nodes, rcfg.max_edges_per_node, self.device)
-        self.lethal_overlay = torch.zeros((spec.size, spec.size), dtype=torch.bool,
-                                          device=self.device)
-        # tick-stamped FI-failure wedges: EXPIRE after lethal_wedge_ttl_ticks
-        # and are cleared by the ClearCostmap recovery rung, unlike the
-        # durable blacklist-eviction overlay above
-        self.wedge_age = torch.full((spec.size, spec.size), -1, dtype=torch.int32,
-                                    device=self.device)
+        G = spec.size
+        # the roadmap and the overlays move into a slot of this configuration
+        # and grid (``utils/jit.py``) at the first tick; the overlay is a new
+        # view after each change, as the costmaps cache their composed grid
+        # against its identity
+        key = ("ExplorationServer", repr(cfg), spec)
+        self._slot_state = jit.SlotState(self, key, self.device, {
+            "roadmap": rmx.empty_roadmap(rcfg.max_nodes, rcfg.max_edges_per_node, self.device),
+            # durable blacklist-eviction cells
+            "lethal_overlay": torch.zeros((G, G), dtype=torch.bool, device=self.device),
+            # tick-stamped FI-failure wedges: EXPIRE after
+            # lethal_wedge_ttl_ticks and are cleared by the ClearCostmap
+            # recovery rung, unlike the durable overlay
+            "wedge_age": torch.full((G, G), -1, dtype=torch.int32, device=self.device),
+            "tick": torch.zeros((), dtype=torch.int32, device=self.device),
+        }, capture, fresh=("lethal_overlay",))
         # with no SLAM the roadmap is anchored to one identity keyframe
-        self._identity_kf = (lie.SE3.identity((1,), device=self.device), 1)
+        self._identity_kf = (lie.SE3.identity((1,), device=self.device),
+                             torch.ones((), dtype=torch.int32, device=self.device))
         self._clear_failures = 0
         self.boundary_mask: Optional[torch.Tensor] = None  # E7 boundary polygon
         self.blacklist_xy: List[np.ndarray] = []     # blacklisted goal circles
@@ -200,6 +346,18 @@ class ExplorationServer:
         self._fi_retries = 0
         self._fi_drop_count = 0
         self._fi_exhaustive_retry = False
+
+    roadmap = jit.slot_field(doc="""The roadmap; with capture, the slot's buffers
+        (updated in place by each tick: copy what must not change; assigning
+        copies in).""")
+    lethal_overlay = jit.slot_field()
+    wedge_age = jit.slot_field()
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path."""
+        return self._slot_state.stats()
 
     # ------------------------------------------------------------------
     # Control surface (RViz panel equivalent)
@@ -269,7 +427,7 @@ class ExplorationServer:
                 self.state = ExplorationState.EXPLORING
             return self.state
 
-        occ = navx.apply_overlay(self.get_occupancy(), self._overlay())
+        occ = self._overlaid(self.get_occupancy())
 
         if self.state == ExplorationState.RECOVERING:
             return self._tick_recovery(occ, robot_xy, robot_yaw)
@@ -284,79 +442,11 @@ class ExplorationServer:
             else:
                 self.nav.cancel()
 
-        robot_dev = self._upload_xy(robot_xy)
-
-        # -- roadmap upkeep --
-        with self.log.scope("roadmap.update", MODULE):
-            self._update_roadmap(occ, robot_xy, robot_yaw, robot_dev)
-
-        # -- frontier search with radius growth (SearchForFrontiers) --
-        with self.log.scope("frontier_search", MODULE):
-            fr = self._search_frontiers(occ, robot_dev)
-
-        # -- costs --
-        with self.log.scope("frontier_costs", MODULE):
-            robot_dist, parent, src = rmx.shortest_paths(self.roadmap, robot_dev)
-            blacklisted = self._blacklist_mask(fr)
-            pot = navx.wavefront_potential(
-                self.spec,
-                navx.clear_robot_footprint(self.spec, occ, robot_dev),
-                robot_dev,
-                iters=self.cfg.nav.wavefront_iters,
-                allow_unknown=True,
-            )
-            # fisher_information_in_path per frontier (E4/E5): mean FOV
-            # landmark information along each approach segment
-            fcfg = self.cfg.fisher_information
-            path_fi = None
-            if (self.get_landmarks is not None and fcfg.enabled
-                    and fcfg.min_path_information > 0.0):
-                lm_xy, lm_info, lm_valid = (self._on_device(a) for a in self.get_landmarks())
-                path_fi = fisher.path_information(
-                    lm_xy.to(torch.float32), lm_info.to(torch.float32), lm_valid.to(torch.bool),
-                    robot_dev, fr.goal_xy, fr.valid,
-                    num_waypoints=fcfg.path_fi_waypoints,
-                    fov_half_angle=fcfg.fov_half_angle,
-                    max_range=fcfg.max_landmark_distance,
-                )
-            methods = tuple(self.cfg.cost_assigner.cost_calculation_methods)
-            costs = cx.assign_costs(
-                self.spec, occ, fr, self.roadmap.xy, self.roadmap.valid,
-                robot_dist, blacklisted,
-                methods=methods,
-                rng_key=(prng.prng_key(self.diag.ticks)
-                         if "RandomCosts" in methods else None),
-                alpha=self.cfg.cost_assigner.alpha,
-                beta=self.cfg.cost_assigner.beta,
-                v_max=self.cfg.cost_assigner.max_linear_velocity,
-                w_max=self.cfg.cost_assigner.max_angular_velocity,
-                grid_pot=pot,
-                path_fi=path_fi,
-                min_path_info=fcfg.min_path_information,
-                robot_xy=robot_dev,
-                closeness_rejection=self.cfg.cost_calculator.closeness_rejection_m,
-                factor_of_max_info=self.cfg.cost_calculator.factor_of_max_info,
-                raycast_depth_m=self.cfg.cost_calculator.raycast_depth_m,
-            )
-
-        # -- full path optimization (TSP) --
-        with self.log.scope("optimize_full_path", MODULE):
-            has_goal_d, goal_idx_d = self._optimize_path(
-                costs, fr, blacklisted, robot_dev, occ)
-
-        # ONE packed device->host pull for every per-tick control-flow scalar
-        prev_goal = (np.asarray(self._goal_xy, np.float32)
-                     if self._goal_xy is not None else np.zeros(2, np.float32))
-        # prefetch the FI gate's scalar into the same pull when a device
-        # oracle is wired
-        fi_dev = -1e30
-        if (self.fi_oracle_device is not None
-                and self.cfg.fisher_information.enabled
-                and not self._fi_exhaustive_retry):
-            fi_dev = self.fi_oracle_device(robot_xy, robot_yaw, False)
-        vals = self._read(_pack_tick_scalars(
-            self.spec, occ, fr.valid, fr.goal_xy, costs.best_heading,
-            has_goal_d, goal_idx_d, self._upload_xy(prev_goal), fi_dev))
+        # roadmap upkeep, frontier search, costs and the TSP up to ONE packed
+        # device->host pull of every per-tick control-flow scalar
+        with self.log.scope("exploration.tick", MODULE):
+            vals_d, self._bf_parent, self._bf_src = self._tick_device(occ, robot_xy, robot_yaw)
+        vals = self._read(vals_d)
         fi_prefetched = float(vals[7]) if float(vals[7]) > -1e29 else None
 
         n_frontiers = int(vals[0])
@@ -420,66 +510,76 @@ class ExplorationServer:
     # Stages
     # ------------------------------------------------------------------
 
-    def _search_frontiers(self, occ, robot_dev) -> fx.Frontiers:
-        fcfg = self.cfg.frontier_search
-        return fx.extract_frontiers(
-            self.spec, occ, robot_dev, self._search_radius,
-            max_cells=4096,
-            max_frontiers=fcfg.max_frontiers,
-            max_cluster_size=fcfg.max_frontier_cluster_size,
-            min_cluster_size=fcfg.min_frontier_cluster_size,
-            cc_iters=fcfg.cc_iters,
-            boundary=self.boundary_mask,
-        )
+    def _overlaid(self, occ_raw: torch.Tensor) -> torch.Tensor:
+        """Region ``overlay`` on the grid ``occ_raw``: the tick's grid."""
+        ttl = self.cfg.fisher_information.lethal_wedge_ttl_ticks
+        tick = self._slot_state.fill("tick", self.diag.ticks)
+        _, occ = self._slot_state.run("overlay", functools.partial(overlay_region, ttl=ttl),
+                                      occ_raw, self.lethal_overlay, self.wedge_age, tick)
+        return occ
 
-    def _update_roadmap(self, occ, robot_xy, robot_yaw, robot_dev):
-        rcfg = self.cfg.roadmap
-        kf_T_cw, n_kf = self._kf_poses()
-        # robot pose as node + trailing deque; trailing poses keep their
-        # heading for the isPathSafe FOV-overlap test
-        self.roadmap = rmx.add_nodes(
-            self.roadmap, robot_dev[None, :],
-            torch.ones((1,), dtype=torch.bool, device=self.device),
-            torch.zeros((1,), dtype=torch.bool, device=self.device),
-            kf_T_cw, n_kf, rcfg.min_node_separation,
-        )
+    def _tick_device(self, occ, robot_xy, robot_yaw):
+        """The tick's host decisions, then region ``tick`` (a variant for
+        each host-chosen branch): (packed scalars, BF parents, BF source)."""
+        rcfg, fcfg = self.cfg.roadmap, self.cfg.fisher_information
+        # trailing poses keep their heading for the isPathSafe FOV-overlap test
         self.trailing_poses.append(
             np.array([robot_xy[0], robot_xy[1], robot_yaw], np.float64))
         if len(self.trailing_poses) > rcfg.trailing_pose_count:
             self.trailing_poses.pop(0)
-
-        # periodic full reconstruction + loop-closure correction (CleanupRoadmap)
+        # periodic full reconstruction + loop-closure correction
+        # (CleanupRoadmap), on the logger's clock
+        reanchor = False
         now = self.log.time_since_start()
         if now - self._last_cleanup > rcfg.cleanup_period_s:
             self._last_cleanup = now
             if rcfg.correct_loop_closure:
-                self.roadmap = rmx.reanchor_nodes(self.roadmap, kf_T_cw)
+                reanchor = True
                 self.diag.loop_corrections += 1
-        self.roadmap = rmx.connect_edges(
-            self.roadmap, self.spec, occ,
-            rcfg.max_edge_length, rcfg.max_unknown_fraction,
-        )
 
-    def add_frontier_nodes(self, fr: fx.Frontiers):
+        prev_goal = (np.asarray(self._goal_xy, np.float32)
+                     if self._goal_xy is not None else np.zeros(2, np.float32))
+        host = [np.asarray(robot_xy, np.float32), prev_goal,
+                np.float32([self._search_radius]), self._blacklist_buffer().reshape(-1)]
+        oracle = self.fi_oracle_device
+        fi = oracle is not None and fcfg.enabled and not self._fi_exhaustive_retry
+        fi_inputs = None
+        if fi:
+            host.append(np.asarray(oracle.pose(robot_xy, robot_yaw), np.float32))
+            fi_inputs = oracle.inputs()
+        if "RandomCosts" in self.cfg.cost_assigner.cost_calculation_methods:
+            host.append(cx.random_draw(prng.prng_key(self.diag.ticks),
+                                       self.cfg.frontier_search.max_frontiers))
+        landmarks = None
+        if (self.get_landmarks is not None and fcfg.enabled
+                and fcfg.min_path_information > 0.0):
+            landmarks = tuple(self._on_device(a) for a in self.get_landmarks())
         kf_T_cw, n_kf = self._kf_poses()
-        self.roadmap = rmx.add_nodes(
-            self.roadmap, fr.goal_xy, fr.valid, torch.ones_like(fr.valid),
-            kf_T_cw, n_kf, self.cfg.roadmap.min_node_separation,
-        )
+        args = (occ, self.roadmap, upload(np.concatenate(host), self.device), kf_T_cw,
+                self._on_device(n_kf), landmarks, fi_inputs, self.boundary_mask)
+        variant = "".join(f"+{flag}" for flag, on in (
+            ("reanchor", reanchor), ("fi", fi), ("path_fi", landmarks is not None),
+            ("boundary", self.boundary_mask is not None)) if on)
+        # the oracle's inputs may differ in structure (a world anchor or not)
+        name = f"tick{variant}/{len(jit.flatten(fi_inputs)[0])}"
+        fn = functools.partial(tick_region, spec=self.spec, cfg=self.cfg, reanchor=reanchor,
+                               fi_value=oracle.value if fi else None)
+        (_, self.roadmap, *_), out = self._slot_state.run(name, fn, *args)
+        return out
 
     def _kf_poses(self):
         if self.get_kf_poses is not None:
             return self.get_kf_poses()
         return self._identity_kf
 
-    BLACKLIST_CAP = 64
+    BLACKLIST_CAP = BLACKLIST_CAP      # the module's, as the reference's class attribute
 
-    def _blacklist_mask(self, fr: fx.Frontiers) -> torch.Tensor:
-        """Fixed-capacity circle buffer; unused rows sit at 1e9 and never
-        match. When the buffer would overflow, the OLDEST circles are
-        evicted into the persistent `lethal_overlay` (rasterized as
-        world-frame discs) before being dropped, so a blacklisted goal stays
-        excluded for the whole mission."""
+    def _blacklist_buffer(self) -> np.ndarray:
+        """The (BLACKLIST_CAP, 3) float32 circle buffer; unused rows sit at
+        1e9 and never match. When the buffer would overflow, the OLDEST
+        circles are evicted into the persistent `lethal_overlay` (rasterized
+        as world-frame discs) before being dropped, so a blacklisted goal
+        stays excluded for the whole mission."""
         peers = []
         if self.peer_goals is not None:
             peers = [self._circle3(g) for g in self.peer_goals()
@@ -505,7 +605,7 @@ class ExplorationServer:
         n = min(len(circles), self.BLACKLIST_CAP)
         if n:
             buf[:n] = np.stack(circles)[-n:]
-        return cx.blacklist_mask(fr.goal_xy, upload(buf, self.device))
+        return buf
 
     def _circle3(self, xy, radius: Optional[float] = None) -> np.ndarray:
         """Normalize a blacklist entry to (x, y, radius); bare (x, y) entries
@@ -516,35 +616,6 @@ class ExplorationServer:
         r = (self.cfg.path_optimizer.blacklist_radius_m
              if radius is None else radius)
         return np.array([a[0], a[1], r], np.float32)
-
-    def _optimize_path(self, costs, fr, blacklisted, robot_dev, occ):
-        # frontier nodes join the roadmap AND get edges before the TSP prices
-        # legs over them; node snaps are then refreshed so TSP legs route
-        # through the just-connected nodes instead of stale ones
-        self.add_frontier_nodes(fr)
-        rcfg = self.cfg.roadmap
-        self.roadmap = rmx.connect_edges(
-            self.roadmap, self.spec, occ,
-            rcfg.max_edge_length, rcfg.max_unknown_fraction,
-        )
-        costs = costs._replace(node_idx=cx.snap_to_nodes(
-            fr.goal_xy, self.roadmap.xy, self.roadmap.valid))
-        sel, sel_valid, g_idx = cx.select_locals(
-            costs, fr, blacklisted, self.cfg.path_optimizer.local_path_threshold_m
-        )
-        # all BF rows (robot + every selected local) in ONE batched pass:
-        # pairwise row 0 = robot, rows 1.. = locals in selection order
-        srcs = cx.make_bf_sources(robot_dev, fr.goal_xy, sel)
-        dists, parents, src_nodes = rmx.shortest_paths_multi(self.roadmap, srcs)
-        self._bf_parent = parents[0]
-        self._bf_src = src_nodes[0]
-        g_node = cx.global_node(costs.node_idx, g_idx)
-        plan = cx.optimize_full_path(
-            costs, fr, blacklisted, dists, sel, sel_valid, g_node
-        )
-        # closest-global fallback applied branchlessly on the device: the
-        # tick's control-flow scalars come back in one packed pull
-        return cx.finalize_goal(plan.has_goal, plan.goal_idx, g_idx)
 
     def _build_published_path(self, goal_xy, occ, robot_xy) -> Optional[np.ndarray]:
         """The exploration-published plan (refineAndPublishPath): roadmap

@@ -14,7 +14,11 @@ carries a fixed-size 15-dim measurement and its mask, and masked dims are
 fused with a variance of ``BIG_VAR`` (a vanishing gain) instead of a branch.
 The reference scans a window in one ``lax.scan``; here the scan is a Python
 loop over rows of float32 PyTorch operations that never reads a value back,
-so a whole window is queued without a host sync. The 15x15 products run in
+so a whole window is queued without a host sync. ``DualEkf`` runs each
+window as a captured program (``utils/jit.py``, the counterpart of the
+reference's ``vjit(_run_ekf)``): one region a filter, whose state lives in
+the slot's buffers and whose one input is the window's rows, staged to the
+device in one copy a flush. The 15x15 products run in
 float32 (the reference multiplies at HIGHEST precision; TF32 stays off, as
 the SLAM engine sets it), and the two solves of an update share one LU
 factorization of S. ``run_ekf_fleet`` is the reference's ``vmap`` over
@@ -31,6 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.utils import jit
 from fitslam_tpu_torch.utils.transfer import upload
 
 STATE_DIM = 15
@@ -245,8 +250,17 @@ def run_ekf(
 
 
 #: Fleet variant: a leading robot dim on (state, batch) — the reference's
-#: ``vmap`` over robots (multi-robot EKF-per-namespace parity).
+#: ``vmap`` over robots (multi-robot EKF-per-namespace parity). No path runs
+#: it, and it stays a plain function (not a captured region).
 run_ekf_fleet = run_ekf
+
+
+def window_region(state: EkfState, rows: torch.Tensor, Q: torch.Tensor):
+    """One window of packed rows (``rows_array``'s layout, on the device)
+    fused into ``state`` by ``run_ekf``: the region ``DualEkf`` captures.
+    Writes the state."""
+    state, _ = run_ekf(state, batch_from_array(rows), Q)
+    return (state,), ()
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +299,8 @@ def noop_row():
             np.full(STATE_DIM, BIG_VAR, np.float32), np.float32(0.0))
 
 
-def pack_rows(rows, capacity: Optional[int] = None, device="cuda") -> MeasurementBatch:
-    """Stack rows into a batch on ``device`` (one host->device copy),
+def rows_array(rows, capacity: Optional[int] = None) -> np.ndarray:
+    """Rows stacked into one (T, 47) float32 array [dt, z, mask, var, gate],
     optionally padded with no-op rows to a fixed `capacity`, as the
     reference pads every dispatch to one compiled shape."""
     if capacity is not None:
@@ -294,11 +308,21 @@ def pack_rows(rows, capacity: Optional[int] = None, device="cuda") -> Measuremen
             raise ValueError(f"{len(rows)} rows > window capacity {capacity}")
         rows = list(rows) + [noop_row()] * (capacity - len(rows))
     dt, z, mask, var, gate = (np.stack([r[i] for r in rows]) for i in range(5))
+    return np.concatenate([dt[:, None], z, mask.astype(np.float32), var, gate[:, None]],
+                          axis=1).astype(np.float32)
+
+
+def batch_from_array(v: torch.Tensor) -> MeasurementBatch:
+    """The batch held by a (T, 47) array of ``rows_array``'s layout."""
     D = STATE_DIM
-    v = upload(np.concatenate([dt[:, None], z, mask.astype(np.float32), var, gate[:, None]],
-                              axis=1).astype(np.float32), device)
     return MeasurementBatch(dt=v[:, 0], z=v[:, 1:1 + D], mask=v[:, 1 + D:1 + 2 * D] > 0.5,
                             var=v[:, 1 + 2 * D:1 + 3 * D], gate=v[:, 1 + 3 * D])
+
+
+def pack_rows(rows, capacity: Optional[int] = None, device="cuda") -> MeasurementBatch:
+    """Stack rows into a batch on ``device`` (one host->device copy),
+    optionally padded with no-op rows to a fixed `capacity`."""
+    return batch_from_array(upload(rows_array(rows, capacity), device))
 
 
 class NavsatTransform:
@@ -324,14 +348,31 @@ class DualEkf:
     IMU, continuous) and a map-frame filter (same + GPS or the SLAM pose,
     jump-corrected). Rows accumulate on the host; ``flush`` fuses them in
     windows of ``WINDOW_CAP`` rows on ``device`` and reads both poses back in
-    one copy, counted in ``host_syncs``."""
+    one copy, counted in ``host_syncs``.
+
+    With ``capture`` (the default) each window is a captured region
+    (``utils/jit.py``; a CUDA graph on a CUDA device), one a filter
+    (``ekf_odom``, ``ekf_map``), and both states live in the slot's buffers,
+    claimed at the first flush: ``odom_state`` and ``map_state`` are those
+    buffers, updated in place by each flush, and assigning either copies into
+    them. ``capture=False`` runs the same windows as plain PyTorch, the eager
+    path that captured runs are held to."""
+
+    #: fixed flush window, as the reference's one compiled shape
+    WINDOW_CAP = 64
 
     def __init__(self, Q: Optional[torch.Tensor] = None, gps_var: float = 1.0,
-                 device="cuda"):
+                 device="cuda", capture: bool = True):
         self.device = torch.device(device)
-        self.Q = default_process_noise(self.device) if Q is None else Q.to(self.device)
-        self.odom_state = initial_state(device=self.device)
-        self.map_state = initial_state(device=self.device)
+        self.capture = capture
+        # both states and Q move into a slot of this device and window
+        # (``utils/jit.py``) at the first flush
+        self._slot_state = jit.SlotState(
+            self, ("DualEkf", self.WINDOW_CAP), self.device,
+            {"ekf_odom": initial_state(device=self.device),
+             "ekf_map": initial_state(device=self.device),
+             "Q": default_process_noise(self.device) if Q is None else Q.to(self.device)},
+            capture)
         self.navsat = NavsatTransform()
         self.gps_var = gps_var
         self._odom_rows: list = []
@@ -339,6 +380,16 @@ class DualEkf:
         self.host_syncs = 0       # device->host reads so far (one a flush)
         self.flushes = 0          # flush() calls so far
         self.windows = 0          # run_ekf windows fused so far
+
+    odom_state = jit.slot_field("ekf_odom")
+    map_state = jit.slot_field("ekf_map")
+    Q = jit.slot_field()
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path."""
+        return self._slot_state.stats()
 
     def add_odom(self, vx: float, vy: float, dt: float, var: float = 0.01):
         row = sensor_row(ODOM_MASK, np.array([vx, vy]), np.full(2, var), dt)
@@ -383,26 +434,26 @@ class DualEkf:
                          np.full(3, var), dt, gate)
         self._map_rows.append(row)
 
-    #: fixed flush window, as the reference's one compiled shape
-    WINDOW_CAP = 64
-
-    def _flush_one(self, state: EkfState, rows: list) -> EkfState:
-        cap = self.WINDOW_CAP
-        for i in range(0, len(rows), cap):
-            state, _ = run_ekf(state, pack_rows(rows[i:i + cap], cap, self.device), self.Q)
-            self.windows += 1
-        return state
-
     def flush(self) -> Tuple[np.ndarray, np.ndarray]:
         """Fuse all buffered rows; returns (odom_pose, map_pose) as
         [x, y, z, roll, pitch, yaw], read back in one copy. Rows are padded
-        to WINDOW_CAP-sized chunks with no-op filler, as the reference pads
-        them."""
-        if self._odom_rows:
-            self.odom_state = self._flush_one(self.odom_state, self._odom_rows)
+        to WINDOW_CAP-sized windows with no-op filler, as the reference pads
+        them; every window of both filters reaches the device in one copy."""
+        cap = self.WINDOW_CAP
+        windows = [(name, rows[i:i + cap])
+                   for name, rows in (("ekf_odom", self._odom_rows), ("ekf_map", self._map_rows))
+                   for i in range(0, len(rows), cap)]
+        if windows:
+            staged = upload(np.stack([rows_array(rows, cap) for _, rows in windows]),
+                            self.device)
+            if self.capture:
+                self._slot_state.claim()     # the windows then read its buffers
+            for (name, _), rows in zip(windows, staged.unbind(0)):
+                (state, _, _), _ = self._slot_state.run(
+                    name, window_region, self._slot_state[name], rows, self.Q)
+                self._slot_state[name] = state
+                self.windows += 1
             self._odom_rows.clear()
-        if self._map_rows:
-            self.map_state = self._flush_one(self.map_state, self._map_rows)
             self._map_rows.clear()
         v = torch.cat([self.odom_state.x[:6], self.map_state.x[:6]]).cpu().numpy()
         self.host_syncs += 1

@@ -60,10 +60,20 @@ class StereoSlam:
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = torch.device(device)
-        self.K = Intrinsics.from_config(cfg.camera, self.device)
         self.capture = capture
-        self._slot: Optional[jit.Slot] = None   # claimed at the first frame step
-        self._map, self._state = self._fresh_state()
+        mp = cfg.mapping
+        m = sm.empty_map(mp.max_keyframes, mp.max_landmarks, mp.max_observations,
+                         signature_dim=cfg.loop.vocab_dim, device=self.device)
+        # the map, tracker state and intrinsics move into a slot of this
+        # configuration and map capacity (``utils/jit.py``) at the first frame
+        # step, when an engine this one replaces (``slam = StereoSlam(..)`` in
+        # a loop) is gone
+        self._slot_state = jit.SlotState(
+            self, ("StereoSlam", repr(cfg), m.capacity, m.kf_signature.shape[1]), self.device,
+            {"K": Intrinsics.from_config(cfg.camera, self.device), "map": m,
+             "state": tr.init_track_state(self.device),
+             "frame_id": torch.zeros((), dtype=torch.int32, device=self.device)},
+            capture)
         self.frame_id = 0
         self.trajectory: List[np.ndarray] = []   # T_wc 4x4 per frame
         self._traj_ref: List = []                # (ref_kf, its T_cw then) per frame
@@ -87,70 +97,21 @@ class StereoSlam:
     # State and its buffers
     # ------------------------------------------------------------------
 
-    def _fresh_state(self):
-        mp = self.cfg.mapping
-        m = sm.empty_map(mp.max_keyframes, mp.max_landmarks, mp.max_observations,
-                         signature_dim=self.cfg.loop.vocab_dim, device=self.device)
-        return m, tr.init_track_state(self.device)
-
-    def _claim_slot(self) -> jit.Slot:
-        """Take a slot of this configuration and map capacity
-        (``utils/jit.py``) at the first frame step, when an engine this one
-        replaces (``slam = StereoSlam(..)`` in a loop) is gone: its buffers
-        hold copies of this engine's map, tracker state and intrinsics from
-        then on."""
-        own = {"K": self.K, "map": self._map, "state": self._state,
-               "frame_id": torch.zeros((), dtype=torch.int32, device=self.device)}
-        key = ("StereoSlam", repr(self.cfg), self._map.capacity,
-               self._map.kf_signature.shape[1])
-        slot, new = jit.claim(self, key, self.device,
-                              lambda: {name: jit.clone(tree) for name, tree in own.items()})
-        if not new:
-            for name in ("K", "map", "state"):
-                jit.assign(slot.buffers[name], own[name])
-        self._slot = slot
-        self.K = slot.buffers["K"]
-        self._map, self._state = slot.buffers["map"], slot.buffers["state"]
-        return slot
-
-    @property
-    def map(self) -> sm.SlamMap:
-        """The map; with capture, the regions' buffers (updated in place by
-        each step: copy what must not change)."""
-        return self._map
-
-    @map.setter
-    def map(self, m: sm.SlamMap):
-        if self._slot is None:
-            self._map = m
-        else:
-            jit.assign(self._map, m)
-
-    @property
-    def state(self) -> tr.TrackState:
-        return self._state
-
-    @state.setter
-    def state(self, st: tr.TrackState):
-        if self._slot is None:
-            self._state = st
-        else:
-            jit.assign(self._state, st)
+    K = jit.slot_field()
+    map = jit.slot_field(doc="""The map; with capture, the regions' buffers
+        (updated in place by each step: copy what must not change; assigning
+        copies in).""")
+    state = jit.slot_field()
 
     @property
     def capture_stats(self) -> Dict[str, Dict]:
         """{region: calls, captured, capture seconds, graph pool bytes}; empty
         on the eager path."""
-        return self._slot.stats() if self._slot is not None else {}
-
-    def _run(self, name, fn, *args):
-        if not self.capture:
-            return jit.run_eagerly(name, fn, *args)
-        return (self._slot or self._claim_slot()).run(name, fn, *args)
+        return self._slot_state.stats()
 
     def _keep(self, tree):
         """A copy of a step's output that the next step leaves alone."""
-        return self._slot.snapshot(tree) if self.capture else tree
+        return self._slot_state.slot.snapshot(tree) if self.capture else tree
 
     # ------------------------------------------------------------------
     # Frame pipeline
@@ -161,7 +122,8 @@ class StereoSlam:
         fn = functools.partial(tr.process_stereo, num_features=o.num_features,
                                num_levels=o.num_levels, scale_factor=o.scale_factor,
                                fast_threshold=o.fast_threshold)
-        return self._run("frontend_stereo", jit.pure(fn), self.K, img_left, img_right)[1]
+        return self._slot_state.run("frontend_stereo", jit.pure(fn), self.K,
+                                    img_left, img_right)[1]
 
     def _frontend_rgbd(self, img, depth_img) -> tr.StereoFrame:
         o = self.cfg.orb
@@ -169,7 +131,7 @@ class StereoSlam:
                                num_levels=o.num_levels, scale_factor=o.scale_factor,
                                fast_threshold=o.fast_threshold,
                                max_depth=self.cfg.camera.depth_max)
-        return self._run("frontend_rgbd", jit.pure(fn), self.K, img, depth_img)[1]
+        return self._slot_state.run("frontend_rgbd", jit.pure(fn), self.K, img, depth_img)[1]
 
     def backend_kwargs(self) -> Dict:
         """The backend step's settings from the config (``_backend_body``'s
@@ -206,13 +168,13 @@ class StereoSlam:
         lost-frame count), in the last region's buffers when captured."""
         fid_buf = None
         if self.capture:
-            fid_buf = (self._slot or self._claim_slot()).buffers["frame_id"]
+            fid_buf = self._slot_state.claim().buffers["frame_id"]
         m, st, outs, lost, inserted, syncs = backend_step(
-            self._run, self.K, self._map, self._state, frame, self.frame_id,
+            self._slot_state.run, self.K, self.map, self.state, frame, self.frame_id,
             initialized=self._track_initialized, frame_id_buf=fid_buf,
             **self.backend_kwargs())
         if not self.capture:
-            self._map, self._state = m, st
+            self.map, self.state = m, st
         self.host_syncs += syncs
         self._track_initialized = self._track_initialized or inserted
         return outs, lost
@@ -375,7 +337,7 @@ class StereoSlam:
         cfg = self.cfg
         with self.log.scope("backend_step", MODULE):
             step = self._step(frame)
-            outs, lost = self._slot.to_host(step) if self.capture else jit.to_host(step)
+            outs, lost = self._slot_state.slot.to_host(step) if self.capture else jit.to_host(step)
             self.host_syncs += 1
         n_inl, was_kf, kf_idx_h, ref_kf = (int(outs.n_inliers), bool(outs.was_keyframe),
                                            int(outs.kf_idx), int(outs.ref_kf))

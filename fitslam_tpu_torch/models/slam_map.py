@@ -251,15 +251,22 @@ def landmarks_in_view(m: SlamMap, K: Intrinsics, T_wc: lie.SE3, max_distance: fl
                       width: int = 640, height: int = 480):
     """Camera-frame landmark positions (..., L, 3) and in-view mask (..., L)
     for a pose or a batch of poses."""
+    return points_in_view(m.lm_pos, m.lm_valid, K, T_wc, max_distance, width, height)
+
+
+def points_in_view(lm_pos: torch.Tensor, lm_valid: torch.Tensor, K: Intrinsics,
+                   T_wc: lie.SE3, max_distance: float, width: int = 640, height: int = 480):
+    """``landmarks_in_view`` on the map's landmark positions (L, 3) and
+    validity (L,) alone."""
     T_cw = lie.inverse(T_wc)
-    pts = m.lm_pos.expand(tuple(T_cw.t.shape[:-1]) + tuple(m.lm_pos.shape))
+    pts = lm_pos.expand(tuple(T_cw.t.shape[:-1]) + tuple(lm_pos.shape))
     p_c = lie.apply(T_cw, pts)
     z = p_c[..., 2]
     z_safe = torch.where(z > 1e-3, z, torch.ones_like(z))
     u = K.fx * p_c[..., 0] / z_safe + K.cx
     v = K.fy * p_c[..., 1] / z_safe + K.cy
     dist = torch.linalg.norm(p_c, dim=-1)
-    ok = (m.lm_valid & (z > 1e-3) & (dist < max_distance)
+    ok = (lm_valid & (z > 1e-3) & (dist < max_distance)
           & (u >= 0) & (u < width) & (v >= 0) & (v < height))
     return p_c, ok
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from fitslam_tpu_torch.ops.grid import UNKNOWN, GridSpec2D, cell_centres, neighbour, padded
+from fitslam_tpu_torch.ops.numerics import true_div
 from fitslam_tpu_torch.utils.transfer import upload
 
 _INF = 2**30
@@ -40,7 +41,7 @@ N8 = N4 + ((1, 1), (1, -1), (-1, 1), (-1, -1))
 def frontier_mask(
     occ: torch.Tensor,            # (G, G) uint8 occupancy {0 free, 254 lethal, 255 unknown}
     robot_cell: torch.Tensor,     # (2,) int32 (x, y)
-    radius_cells: float,          # search radius in cells (float32 value)
+    radius_cells,                 # search radius in cells (float32 value or 0-d tensor)
     lethal_threshold: int = 254,
 ) -> torch.Tensor:
     """Boolean frontier-cell mask within the search radius."""
@@ -62,8 +63,12 @@ def frontier_mask(
     G = occ.shape[0]
     idx = torch.arange(G, device=occ.device, dtype=torch.int32)
     d2 = (idx[None, :] - robot_cell[0]) ** 2 + (idx[:, None] - robot_cell[1]) ** 2
-    r = np.float32(radius_cells)
-    within = d2.to(torch.float32) <= float(r * r)
+    if isinstance(radius_cells, torch.Tensor):
+        r2 = radius_cells * radius_cells          # float32, as the host product rounds
+    else:
+        r = np.float32(radius_cells)
+        r2 = float(r * r)
+    within = d2.to(torch.float32) <= r2
 
     return unknown & free4 & ~lethal8 & within
 
@@ -120,7 +125,7 @@ def extract_frontiers(
     spec: GridSpec2D,
     occ: torch.Tensor,
     robot_xy: torch.Tensor,       # (2,) world
-    radius_m: float,
+    radius_m,                     # float, or a 0-d float32 tensor (a captured region's input)
     max_cells: int = 4096,
     max_frontiers: int = 128,
     max_cluster_size: int = 20,
@@ -133,7 +138,10 @@ def extract_frontiers(
     n = G * G
     dev = occ.device
     robot_cell, _ = spec.world_to_cell(robot_xy)
-    mask = frontier_mask(occ, robot_cell, np.float32(radius_m) / np.float32(spec.resolution))
+    res = np.float32(spec.resolution)
+    radius_cells = (true_div(radius_m.to(torch.float32), float(res))
+                    if isinstance(radius_m, torch.Tensor) else np.float32(radius_m) / res)
+    mask = frontier_mask(occ, robot_cell, radius_cells)
     if boundary is not None:
         # clip to the boundary polygon (UpdateBoundaryPolygon, §2.3 E7)
         mask = mask & boundary

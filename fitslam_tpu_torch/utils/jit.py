@@ -485,6 +485,88 @@ def claim(owner, key, device, make_state: Callable[[], Dict[str, Any]]) -> Tuple
     return slot, True
 
 
+class SlotState:
+    """The state of one owner of regions (name -> tree of tensors) and the
+    slot it moves into: the owner's own tensors until its first region call
+    claims a slot of ``key`` (a new slot's buffers are copies of them, an idle
+    slot's buffers get them assigned), the slot's buffers from then on.
+    Assigning a field then copies into its buffer, so the next call of a
+    region reads it; the fields named in ``fresh`` are handed out as a new
+    view after each assignment (for readers that cache on a tensor's
+    identity). Without ``capture`` no slot is claimed: the regions run as
+    plain PyTorch (``run_eagerly``) and assigning a field replaces it."""
+
+    def __init__(self, owner, key, device, state: Dict[str, Any], capture: bool = True,
+                 fresh: Sequence[str] = ()):
+        self._owner = weakref.ref(owner)
+        self.key = key
+        self.device = torch.device(device)
+        self.capture = capture
+        self.fresh = frozenset(fresh)
+        self.trees = dict(state)
+        self.slot: Optional[Slot] = None
+
+    def claim(self) -> Slot:
+        if self.slot is None:
+            trees = self.trees
+            slot, new = claim(self._owner(), self.key, self.device,
+                              lambda: {name: clone(tree) for name, tree in trees.items()})
+            if not new:
+                for name, tree in trees.items():
+                    assign(slot.buffers[name], tree)
+            self.slot = slot
+            self.trees = dict(slot.buffers)
+        return self.slot
+
+    def __getitem__(self, name: str):
+        return self.trees[name]
+
+    def __setitem__(self, name: str, value) -> None:
+        if self.slot is None:
+            self.trees[name] = value
+            return
+        buf = self.slot.buffers[name]
+        assign(buf, value)
+        self.trees[name] = buf.view_as(buf) if name in self.fresh else buf
+
+    def fill(self, name: str, value) -> torch.Tensor:
+        """Field ``name``, a device scalar that regions read, set to
+        ``value`` in place (the slot's buffer when capturing)."""
+        if self.capture:
+            self.claim()
+        return self.trees[name].fill_(value)
+
+    def run(self, name: str, fn: Callable, *args):
+        """Region ``name`` on ``args``: ``Slot.run`` when capturing, else
+        ``run_eagerly``."""
+        if not self.capture:
+            return run_eagerly(name, fn, *args)
+        return self.claim().run(name, fn, *args)
+
+    def stats(self) -> Dict[str, Dict[str, Any]]:
+        """``Slot.stats`` of the claimed slot; empty before or without one."""
+        return self.slot.stats() if self.slot is not None else {}
+
+
+class slot_field:
+    """An owner's attribute that is a field of its ``SlotState`` (the
+    owner's ``_slot_state``): reading gives the tree, assigning goes through
+    ``SlotState.__setitem__``."""
+
+    def __init__(self, name: Optional[str] = None, doc: Optional[str] = None):
+        self.name = name
+        self.__doc__ = doc
+
+    def __set_name__(self, cls, attr: str) -> None:
+        self.name = self.name or attr
+
+    def __get__(self, obj, cls=None):
+        return self if obj is None else obj._slot_state[self.name]
+
+    def __set__(self, obj, value) -> None:
+        obj._slot_state[self.name] = value
+
+
 def _drop_idle(keep=None) -> None:
     idle = [(k, s) for k, slots in _SLOTS.items() for s in slots if s.idle and k != keep]
     if not idle:

@@ -8,6 +8,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.models import costs as cx
 from fitslam_tpu_torch.models import nav as navx
 from fitslam_tpu_torch.models import sim_robot as sim
 from fitslam_tpu_torch.models.exploration import ExplorationServer
@@ -62,7 +63,7 @@ def test_evicted_blacklist_goal_stays_excluded():
         server.blacklist_xy.append(np.array([x, 6.5], np.float32))
 
     fr = _frontiers_at([oldest, np.array([5.0, -5.0], np.float32)])
-    mask = server._blacklist_mask(fr).numpy()
+    mask = cx.blacklist_mask(fr.goal_xy, torch.from_numpy(server._blacklist_buffer())).numpy()
 
     # eviction happened: the buffer is bounded, the overlay gained lethal cells
     assert len(server.blacklist_xy) <= cap

@@ -22,6 +22,7 @@ from fitslam_tpu.models import sim_robot as jsim
 from fitslam_tpu.models.sim_nav import SimNavInterface as JSimNav
 from fitslam_tpu.ops import grid as jgrid
 from fitslam_tpu.utils.config import FitSlamConfig as JConfig
+from fitslam_tpu_torch.models import costs as tcx
 from fitslam_tpu_torch.models import exploration as tex
 from fitslam_tpu_torch.models import sim_robot as tsim
 from fitslam_tpu_torch.models.sim_nav import SimNavInterface
@@ -176,7 +177,8 @@ def test_peer_goals_seam_equals_reference():
     fr = jfx.extract_frontiers(JSPEC, jnp.asarray(explored), jnp.zeros(2), jnp.float32(16.0),
                                max_cells=4096, max_frontiers=64)
     mask_j = np.asarray(jserver._blacklist_mask(fr))
-    mask_t = tserver._blacklist_mask(interop.to_torch(jax.tree.map(np.asarray, fr))).numpy()
+    fr_t = interop.to_torch(jax.tree.map(np.asarray, fr))
+    mask_t = tcx.blacklist_mask(fr_t.goal_xy, torch.from_numpy(tserver._blacklist_buffer())).numpy()
     np.testing.assert_array_equal(mask_t, mask_j)
     assert mask_j.sum() >= 1
     jserver.tick()

@@ -177,7 +177,7 @@ def test_buffered_step_equals_eager_and_reference(frames):
     storages = [{x.untyped_storage().data_ptr() for x in _leaves(o)} for o in log]
     assert all(len(s) == 1 for s in storages)
     assert len(set.union(*storages)) == len(log)
-    assert not any(got._slot.owns(x) for o in log for x in _leaves(o))
+    assert not any(got._slot_state.slot.owns(x) for o in log for x in _leaves(o))
 
     # the synchronous path through the buffers: the same poses and reads
     sync = StereoSlam(cfg, "cpu")
@@ -208,17 +208,17 @@ def test_fresh_engine_reuses_the_slot_and_live_engines_do_not_share(frames):
     jit.release_idle()                               # earlier tests' engines are gone
     a = StereoSlam(cfg, "cpu")
     a.process_frame_async(*frames[0])
-    slot = a._slot
+    slot = a._slot_state.slot
     b = StereoSlam(cfg, "cpu")                       # a is alive: its own slot
     b.process_frame_async(*frames[3])
-    assert b._slot is not slot
+    assert b._slot_state.slot is not slot
     a.process_frame_async(*frames[1])
     assert not _equal_trees(a.map, b.map)
     del a
     c = StereoSlam(cfg, "cpu")                       # a's slot, with c's fresh state
     fresh = StereoSlam(cfg, "cpu", capture=False)
     got, want = c.process_frame_async(*frames[2]), fresh.process_frame_async(*frames[2])
-    assert c._slot is slot
+    assert c._slot_state.slot is slot
     assert _equal_trees(got, want)
     assert _equal_trees(c.map, fresh.map) and _equal_trees(c.state, fresh.state)
 
