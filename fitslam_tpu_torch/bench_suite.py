@@ -469,7 +469,7 @@ def active_system(cfg, spec, robot, device, max_omega=None, twist_mux=None, capt
 
     box = {}
     nav = SimNavInterface(cfg, spec, robot, lambda: box["s"].occupancy(), dt=SIM_DT,
-                          twist_mux=twist_mux, device=device)
+                          twist_mux=twist_mux, device=device, capture=capture)
     if max_omega is not None:
         nav.controller.max_omega = max_omega
     system = ActiveSlamSystem(cfg, spec, nav, device=device, event_logger=SimClock(),
@@ -682,14 +682,17 @@ def _plot_ablation(curves, png_path) -> None:
     plt.close(fig)
 
 
-def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call) -> dict:
+def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call,
+                capture: bool = True) -> dict:
     """The exploration loop of the ablation (tests/test_exploration_e2e.py's)
     on the rooms world of seed 1, the explored map its occupancy: a 3 m
     reveal a step, a tick every second step (past DONE too, which keeps the
     curves comparable) and 4 controller steps a step. ``window`` runs the
     tick ("tick") and the step's 4 controller steps ("ctrl"). Returns the
     known cells after each step (an int64 tensor on the device, read by the
-    caller once), the server, the nav, the robot and the explored map."""
+    caller once), the server, the nav, the robot and the explored map.
+    ``capture=False`` runs the server's and the nav's captured programs as
+    plain PyTorch."""
     from fitslam_tpu_torch.models import sim_robot as sim
     from fitslam_tpu_torch.models.exploration import ExplorationServer
     from fitslam_tpu_torch.models.sim_nav import SimNavInterface
@@ -701,10 +704,12 @@ def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call) -> dict
     state = {"explored": torch.full((spec.size, spec.size), gr.UNKNOWN, dtype=torch.uint8,
                                     device=dev)}
     robot = sim.DiffDriveRobot(x=start_xy[0], y=start_xy[1], yaw=0.0, v_max=1.2, w_max=2.5)
-    nav = SimNavInterface(cfg, spec, robot, lambda: state["explored"], dt=0.15, device=dev)
+    nav = SimNavInterface(cfg, spec, robot, lambda: state["explored"], dt=0.15, device=dev,
+                          capture=capture)
     nav.controller.max_omega = 2.0
     server = ExplorationServer(cfg, spec, lambda: state["explored"], nav,
-                               get_robot_pose=lambda: (robot.xy, robot.yaw), device=dev)
+                               get_robot_pose=lambda: (robot.xy, robot.yaw), device=dev,
+                               capture=capture)
 
     def controller_steps():
         for _ in range(4):

@@ -11,13 +11,17 @@
 
 Every grid function takes its tensors on the caller's device and reads
 nothing back; ``Costmap.grid_full_np`` is the one host read (per map
-update), counted in ``Costmap.host_syncs``.
+update), counted in ``Costmap.host_syncs``. A costmap's composition runs as
+one captured program (``utils/jit.py``; a CUDA graph on a CUDA device), the
+counterpart of the reference's compiled ``inflate_grid`` chain;
+``capture=False`` runs it as plain PyTorch.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ import torch
 from fitslam_tpu_torch.ops import grid as gridops
 from fitslam_tpu_torch.ops.grid import LETHAL, UNKNOWN, GridSpec2D, cell_centres
 from fitslam_tpu_torch.ops.pallas_grid import BIG, wavefront_sweeps
+from fitslam_tpu_torch.utils import jit
 from fitslam_tpu_torch.utils.transfer import upload
 
 # descent moves as (dy, dx) and the extra cost of a diagonal step, per device
@@ -273,6 +278,35 @@ def clear_robot_footprint(spec: GridSpec2D, occ: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def costmap_region(occ: torch.Tensor, overlay: Optional[torch.Tensor] = None, *,
+                   resolution: float, cfg):
+    """Region ``costmap[+overlay]``: one costmap's layers on the static
+    source ``occ`` (writes nothing): the LethalMarker ``overlay`` (when given
+    and enabled) with its own inflation pass, the inflation layer, then the
+    resampling of ``cfg.resample``."""
+    if cfg.lethal_marker and overlay is not None:
+        occ = apply_overlay(occ, overlay)
+        if cfg.lethal_inflation_radius_m > 0:
+            occ = gridops.inflate_grid(
+                occ, resolution,
+                inflation_radius_m=cfg.lethal_inflation_radius_m,
+                cost_scaling_factor=cfg.cost_scaling_factor,
+                inscribed_radius_m=cfg.inscribed_radius_m,
+            )
+    if cfg.inflation_radius_m > 0:
+        occ = gridops.inflate_grid(
+            occ, resolution,
+            inflation_radius_m=cfg.inflation_radius_m,
+            cost_scaling_factor=cfg.cost_scaling_factor,
+            inscribed_radius_m=cfg.inscribed_radius_m,
+        )
+    if cfg.resample > 1:
+        occ = gridops.upsample_grid(occ, cfg.resample)
+    elif cfg.resample < -1:
+        occ = gridops.downsample_grid_max(occ, -cfg.resample)
+    return (), occ
+
+
 class Costmap:
     """One nav2-costmap-2d instance (SURVEY.md §2.4 N4): a static source
     (the thresholded traversability grid) composed with an inflation layer,
@@ -282,40 +316,54 @@ class Costmap:
     `grid(robot_xy)` returns (occ, spec): the cost grid and the (possibly
     rolling) spec it lives on. Layer outputs are memoized against the source
     tensor identity, so per-control-tick queries recompose nothing.
+
+    With ``capture`` (the default) the composition is region ``costmap``
+    (``+overlay`` while an overlay is given) of this costmap's slot, keyed
+    by its spec and layer configuration; the composed grid is a copy of the
+    region's output, a new tensor at each recomposition, so a grid handed
+    out earlier keeps its values and identity-keyed readers see the change.
     """
 
-    def __init__(self, spec: GridSpec2D, layer_cfg, get_static, get_overlay=None):
+    def __init__(self, spec: GridSpec2D, layer_cfg, get_static, get_overlay=None,
+                 capture: bool = True):
         self.spec = spec
         self.cfg = layer_cfg
         self.get_static = get_static
         self.get_overlay = get_overlay
+        self.capture = capture
+        self._slot_state: Optional[jit.SlotState] = None   # made on the source's device
         self._cache_key = None
         self._cache_val = None
         self._np_for = None
         self._np_val = None
         self.host_syncs = 0          # device->host reads (grid_full_np)
+        spec_out = spec
+        if layer_cfg.resample > 1:
+            spec_out = GridSpec2D(spec.size * layer_cfg.resample,
+                                  spec.resolution / layer_cfg.resample,
+                                  spec.origin_x, spec.origin_y)
+        elif layer_cfg.resample < -1:
+            k = -layer_cfg.resample
+            spec_out = GridSpec2D(spec.size // k, spec.resolution * k,
+                                  spec.origin_x, spec.origin_y)
+        self._spec_out = spec_out
 
-    def _compose(self, occ: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.lethal_marker and self.get_overlay is not None:
-            overlay = self.get_overlay()
-            if overlay is not None:
-                occ = apply_overlay(occ, overlay)
-                if cfg.lethal_inflation_radius_m > 0:
-                    occ = gridops.inflate_grid(
-                        occ, self.spec.resolution,
-                        inflation_radius_m=cfg.lethal_inflation_radius_m,
-                        cost_scaling_factor=cfg.cost_scaling_factor,
-                        inscribed_radius_m=cfg.inscribed_radius_m,
-                    )
-        if cfg.inflation_radius_m > 0:
-            occ = gridops.inflate_grid(
-                occ, self.spec.resolution,
-                inflation_radius_m=cfg.inflation_radius_m,
-                cost_scaling_factor=cfg.cost_scaling_factor,
-                inscribed_radius_m=cfg.inscribed_radius_m,
-            )
-        return occ
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path or before the first composition."""
+        return self._slot_state.stats() if self._slot_state is not None else {}
+
+    def _compose(self, occ: torch.Tensor, overlay: Optional[torch.Tensor]) -> torch.Tensor:
+        if self._slot_state is None:
+            self._slot_state = jit.SlotState(
+                self, ("Costmap", self.spec, repr(self.cfg)), occ.device, {}, self.capture)
+        use = overlay if self.cfg.lethal_marker else None
+        fn = functools.partial(costmap_region, resolution=self.spec.resolution, cfg=self.cfg)
+        name = "costmap+overlay" if use is not None else "costmap"
+        st = self._slot_state
+        _, out = st.run(name, fn, occ, *(() if use is None else (use,)))
+        return st.slot.snapshot(out) if self.capture else out
 
     def _ensure_cache(self):
         """Compose (and resample) the source unless it is the cached one.
@@ -326,20 +374,9 @@ class Costmap:
         if (self._cache_key is not None and src is self._cache_key[0]
                 and overlay is self._cache_key[1]):
             return
-        occ = self._compose(src)
-        spec = self.spec
-        if self.cfg.resample > 1:
-            occ = gridops.upsample_grid(occ, self.cfg.resample)
-            spec = GridSpec2D(spec.size * self.cfg.resample,
-                              spec.resolution / self.cfg.resample,
-                              spec.origin_x, spec.origin_y)
-        elif self.cfg.resample < -1:
-            k = -self.cfg.resample
-            occ = gridops.downsample_grid_max(occ, k)
-            spec = GridSpec2D(spec.size // k, spec.resolution * k,
-                              spec.origin_x, spec.origin_y)
+        occ = self._compose(src, overlay)
         self._cache_key = (src, overlay)
-        self._cache_val = (occ, spec)
+        self._cache_val = (occ, self._spec_out)
 
     def grid(self, robot_xy=None) -> Tuple[torch.Tensor, GridSpec2D]:
         self._ensure_cache()

@@ -7,12 +7,21 @@ pure-pursuit control, goal state machine {ACTIVE, DONE, ABORTED} matching
 Nav2Interface's states. The host reads back once per plan (the path and its
 mask, packed) and once per map update (the local costmap's mirror), counted
 in ``host_syncs``.
+
+With ``capture`` (the default) a plan is one captured program
+(``utils/jit.py``; a CUDA graph on a CUDA device), the counterpart of the
+reference's compiled ``wavefront_potential`` and ``descend_potential``:
+region ``plan`` (the footprint clear, the potential with K3, the descent and
+the packed path) of this interface's slot, the robot's position and the goal
+staged as one float32 input; both costmaps compose as captured programs too.
+``capture=False`` runs the same region as plain PyTorch.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -21,29 +30,47 @@ from fitslam_tpu_torch.models import nav as navx
 from fitslam_tpu_torch.models.exploration import GoalStatus, NavInterface
 from fitslam_tpu_torch.models.sim_robot import DiffDriveRobot
 from fitslam_tpu_torch.ops.grid import GridSpec2D
+from fitslam_tpu_torch.utils import jit
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.transfer import upload
+
+
+def plan_region(occ: torch.Tensor, host: torch.Tensor, *, spec: GridSpec2D, iters: int,
+                allow_unknown: bool):
+    """Region ``plan``: the robot's footprint cleared from the global
+    costmap ``occ``, the wavefront potential from the goal (K3) and the
+    descent from the robot, packed as (path (max_steps * 2), valid
+    (max_steps,) as float32). ``host`` is [robot x, y, goal x, y]."""
+    robot, goal = host[0:2], host[2:4]
+    occ_plan = navx.clear_robot_footprint(spec, occ, robot)
+    pot = navx.wavefront_potential(spec, occ_plan, goal, iters=iters,
+                                   allow_unknown=allow_unknown)
+    path, ok = navx.descend_potential(spec, pot, robot)
+    return (), torch.cat([path.reshape(-1), ok.to(torch.float32)])
 
 
 class SimNavInterface(NavInterface):
     def __init__(self, cfg: FitSlamConfig, spec: GridSpec2D, robot: DiffDriveRobot,
                  get_occupancy: Callable[[], torch.Tensor], dt: float = 0.1,
                  get_overlay: Optional[Callable[[], torch.Tensor]] = None,
-                 twist_mux=None, device="cuda"):
+                 twist_mux=None, device="cuda", capture: bool = True):
         self.cfg = cfg
         self.spec = spec
         self.robot = robot
         self.get_occupancy = get_occupancy
         self.dt = dt
         self.device = torch.device(device)
+        self.capture = capture
+        self._slot_state = jit.SlotState(self, ("SimNavInterface", repr(cfg), spec),
+                                         self.device, {}, capture)
         # the reference's two nav2 costmap instances (N4): the planner plans
         # on the global costmap (inflation 5.0 + LethalMarker + lethal
         # inflation); the controller collision-checks against the rolling
         # local costmap (10x10 m, inflation 0.6)
         self.global_costmap = navx.Costmap(
-            spec, cfg.costmaps.global_map, get_occupancy, get_overlay)
+            spec, cfg.costmaps.global_map, get_occupancy, get_overlay, capture=capture)
         self.local_costmap = navx.Costmap(
-            spec, cfg.costmaps.local, get_occupancy, get_overlay)
+            spec, cfg.costmaps.local, get_occupancy, get_overlay, capture=capture)
         # optional command multiplexer (twist_mux.yaml, N5): every commanded
         # twist is pushed as the "navigation" source
         self.twist_mux = twist_mux
@@ -63,6 +90,15 @@ class SimNavInterface(NavInterface):
         self._stuck_steps = 0
         self._replan_countdown = 0
         self.plans = 0               # wavefront plans made so far
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes} of the
+        plan and of both costmaps; empty on the eager path."""
+        return {**self._slot_state.stats(), **{
+            f"{which}/{name}": s for which, cm in (("global", self.global_costmap),
+                                                   ("local", self.local_costmap))
+            for name, s in cm.capture_stats.items()}}
 
     @property
     def host_syncs(self) -> int:
@@ -131,18 +167,16 @@ class SimNavInterface(NavInterface):
             # roadmap-planner mode: follow the published exploration plan
             self._path = np.asarray(self._ext_path)
         elif self._path is None or self._replan_countdown <= 0:
-            robot_dev = upload(np.asarray(self.robot.xy, np.float32), self.device)
-            occ_plan = navx.clear_robot_footprint(plan_spec, occ, robot_dev)
-            pot = navx.wavefront_potential(
-                plan_spec, occ_plan, upload(np.asarray(self._goal, np.float32), self.device),
-                iters=self.cfg.nav.wavefront_iters,
-                allow_unknown=self.cfg.nav.allow_unknown,
-            )
-            path, ok = navx.descend_potential(plan_spec, pot, robot_dev)
+            host = upload(np.concatenate([np.asarray(self.robot.xy, np.float32),
+                                          np.asarray(self._goal, np.float32)]), self.device)
+            fn = functools.partial(plan_region, spec=plan_spec,
+                                   iters=self.cfg.nav.wavefront_iters,
+                                   allow_unknown=self.cfg.nav.allow_unknown)
+            _, packed = self._slot_state.run("plan", fn, occ, host)
             self.plans += 1
             # one packed pull for path + mask
-            pk = torch.cat([path.reshape(-1), ok.to(torch.float32)]).cpu().numpy()
-            n = path.shape[0]
+            pk = packed.cpu().numpy()
+            n = pk.shape[0] // 3
             pts = pk[:2 * n].reshape(n, 2)[pk[2 * n:] > 0.5]
             if len(pts) == 0:
                 # maybe we're already basically there

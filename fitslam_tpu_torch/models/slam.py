@@ -46,6 +46,29 @@ from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 
 
+#: an engine's refine cycles that run as plain PyTorch before ``refine_cycle``
+#: is captured. On the H100 a replay saves ~12 host ms of a ~150 ms cycle (its
+#: GBA is device-bound) and a capture costs ~0.5 s more than an eager cycle
+#: (PERF.md, PR 14): the capture pays after some 40 cycles of one engine
+REFINE_EAGER_CYCLES = 40
+
+
+def refine_cycle_region(K: Intrinsics, m: sm.SlamMap, *, gba_iters: int, stereo_weight: float,
+                        mesh=None):
+    """Region ``refine_cycle``: every landmark re-triangulated under the
+    current poses, then global BA (landmark-sharded over ``mesh`` where
+    given). Writes the map; returns GBA's last chi2."""
+    obs = ba.Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr,
+                          sigma2=m.obs_sigma2, valid=m.obs_valid)
+    m = m._replace(lm_pos=ba.retriangulate_points(
+        K, m.kf_T_cw, m.lm_pos, obs, m.lm_valid, stereo_weight=stereo_weight))
+    if mesh is not None:
+        m, chis = sm.global_ba_dist(m, K, mesh, iters=gba_iters)
+        return (None, m), chis[-1]
+    m, stats = sm.global_ba(m, K, iters=gba_iters)
+    return (None, m), stats.chi2[-1]
+
+
 class StereoSlam:
     """Stereo SLAM system with fixed-capacity state on ``device``. With
     ``capture`` (the default) the frame step runs as captured programs
@@ -383,28 +406,31 @@ class StereoSlam:
         landmarks under the current poses breaks that, and GBA descends.
         Call it at mission end, at idle time or after the last expected loop.
         The tracker is re-based by delta composition, as after a loop
-        correction. With a mesh of more than one rank on the loop closer, GBA
-        runs landmark-sharded over it (``slam_map.global_ba_dist``). Returns
-        the last cycle's GBA chi2 (device scalar)."""
+        correction. A cycle is region ``refine_cycle`` on the map's buffers,
+        captured after the engine's first ``REFINE_EAGER_CYCLES`` cycles
+        (eager) and replayed from then on. With a mesh
+        of more than one rank on the loop closer, GBA runs landmark-sharded
+        over it (``slam_map.global_ba_dist``) and the cycles run eagerly.
+        Returns the last cycle's GBA chi2 (device scalar)."""
+        if self.capture:
+            self._slot_state.claim()             # the cycles read the map's buffers
         m = self.map
         j = max(int(m.n_kf) - 1, 0)
         self.host_syncs += 1
-        # copied: assigning the map below overwrites it in place
+        # copied: the cycles below overwrite the map in place
         T_j_old = lie.SE3(m.kf_T_cw.R[j].clone(), m.kf_T_cw.t[j].clone())
         mesh = getattr(self.loop_closer, "mesh", None)
+        mesh = mesh if mesh is not None and mesh.devices.size > 1 else None
+        fn = functools.partial(refine_cycle_region, gba_iters=gba_iters,
+                               stereo_weight=stereo_weight, mesh=mesh)
+        run = (jit.run_eagerly if mesh is not None else
+               functools.partial(self._slot_state.run, eager=REFINE_EAGER_CYCLES))
         chi2 = None
         for _ in range(cycles):
-            obs = ba.Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr,
-                                  sigma2=m.obs_sigma2, valid=m.obs_valid)
-            m = m._replace(lm_pos=ba.retriangulate_points(
-                self.K, m.kf_T_cw, m.lm_pos, obs, m.lm_valid, stereo_weight=stereo_weight))
-            if mesh is not None and mesh.devices.size > 1:
-                m, chis = sm.global_ba_dist(m, self.K, mesh, iters=gba_iters)
-                chi2 = chis[-1]
-            else:
-                m, stats = sm.global_ba(m, self.K, iters=gba_iters)
-                chi2 = stats.chi2[-1]
+            (_, m), chi2 = run(f"refine_cycle/{gba_iters}/{stereo_weight}", fn, self.K, m)
         self.map = m
+        if chi2 is not None and self.capture and mesh is None:
+            chi2 = self._slot_state.slot.snapshot(chi2)
         T_j_new = lie.SE3(m.kf_T_cw.R[j], m.kf_T_cw.t[j])
         T_cur = lie.compose(lie.compose(self.state.T_cw, lie.inverse(T_j_old)), T_j_new)
         self.state = self.state._replace(T_cw=T_cur, T_cw_last_kf=T_cur)

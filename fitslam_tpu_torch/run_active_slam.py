@@ -91,19 +91,21 @@ def active_config(bootstrap: bool = False, ekf: bool = False) -> FitSlamConfig:
     )
 
 
-def build_system(cfg: FitSlamConfig, device="cuda", clock=None):
+def build_system(cfg: FitSlamConfig, device="cuda", clock=None, capture=True):
     """(robot, nav, system): the simulated rover, its nav stack and the
-    ActiveSlamSystem, the robot's pose read from the system's estimate."""
+    ActiveSlamSystem, the robot's pose read from the system's estimate
+    (``capture=False``: their captured programs run as plain PyTorch)."""
     robot = simr.DiffDriveRobot(x=START[0], y=START[1], yaw=START[2], v_max=0.8, w_max=1.0)
     box = {}
     nav = SimNavInterface(
         cfg, SPEC, robot, lambda: box["s"].occupancy(), dt=DT,
         get_overlay=lambda: box["s"].explorer.lethal_overlay,
-        twist_mux=TwistMux() if cfg.localization.enabled else None, device=device)
+        twist_mux=TwistMux() if cfg.localization.enabled else None, device=device,
+        capture=capture)
     nav.controller.max_omega = 0.9
     system = ActiveSlamSystem(cfg, SPEC, nav,
                               get_robot_pose=lambda: box["s"].estimated_robot_pose(),
-                              event_logger=clock, device=device)
+                              event_logger=clock, device=device, capture=capture)
     box["s"] = system
     return robot, nav, system
 

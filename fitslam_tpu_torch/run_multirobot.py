@@ -56,7 +56,7 @@ def fleet_config(allocator: str = "hungarian") -> FitSlamConfig:
 
 
 def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed: int = 2,
-        device="cuda", timer=None, verbose: bool = True) -> dict:
+        device="cuda", timer=None, verbose: bool = True, capture: bool = True) -> dict:
     """Drive the fleet for ``steps`` steps (or until the coordinator finds
     no frontier) with ``fleet_config(allocator)``; ``"auction"`` is one of
     the allocators here, as in the config. ``timer(window)``, if given,
@@ -64,7 +64,8 @@ def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed:
     (``"tick"``) and each step's controller steps (``"ctrl"``). Returns the
     coverage curve (host numpy, read once at the end), the steps run, the
     rovers, their navs, the coordinator, the explored grid and the loop's
-    wall seconds."""
+    wall seconds. ``capture=False`` runs the navs' and the coordinator's
+    captured programs as plain PyTorch."""
     device = torch.device(device)
     cfg = fleet_config(allocator)
     timer = timer or (lambda window: nullcontext())
@@ -73,13 +74,14 @@ def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed:
                                     device=device)}
     robots = [sim.DiffDriveRobot(x=x, y=y, yaw=a, v_max=1.2, w_max=2.5)
               for x, y, a in STARTS[:n_robots]]
-    navs = [SimNavInterface(cfg, SPEC, r, lambda: state["explored"], dt=0.15, device=device)
+    navs = [SimNavInterface(cfg, SPEC, r, lambda: state["explored"], dt=0.15, device=device,
+                            capture=capture)
             for r in robots]
     for n in navs:
         n.controller.max_omega = 2.0
     coord = al.MultiRobotCoordinator(
         cfg, SPEC, lambda: state["explored"], navs,
-        get_poses=lambda: [(r.xy, r.yaw) for r in robots], device=device)
+        get_poses=lambda: [(r.xy, r.yaw) for r in robots], device=device, capture=capture)
 
     if verbose:
         print(f"[multirobot] {len(robots)} rovers, allocator={cfg.multi_robot.allocator}, "

@@ -76,13 +76,14 @@ def fleet_cfg(W: int, H: int) -> FitSlamConfig:
     )
 
 
-def build_rover(cfg, spec, start, peer_goal_fn, device="cuda", clock=None):
-    """One complete rover: sim body + nav stack + full ActiveSlamSystem."""
+def build_rover(cfg, spec, start, peer_goal_fn, device="cuda", clock=None, capture=True):
+    """One complete rover: sim body + nav stack + full ActiveSlamSystem
+    (``capture=False``: their captured programs run as plain PyTorch)."""
     robot = simr.DiffDriveRobot(x=start[0], y=start[1], yaw=start[2],
                                 v_max=0.8, w_max=1.0)
     box = {}
     nav = SimNavInterface(cfg, spec, robot, lambda: box["s"].occupancy(),
-                          dt=DT, device=device)
+                          dt=DT, device=device, capture=capture)
     nav.controller.max_omega = 0.9
     system = ActiveSlamSystem(
         cfg, spec, nav,
@@ -90,18 +91,20 @@ def build_rover(cfg, spec, start, peer_goal_fn, device="cuda", clock=None):
         event_logger=clock,
         peer_goals=peer_goal_fn,
         device=device,
+        capture=capture,
     )
     box["s"] = system
     return robot, nav, system
 
 
 def run_fleet(n_robots, steps, seed=3, W=320, H=240, verbose=True, device="cuda",
-              timer=None):
+              timer=None, capture=True):
     """Run ``n_robots`` full-SLAM rovers for ``steps`` frames; returns
     (fleet of (robot, nav, system), union coverage every TICK_EVERY steps).
     ``timer(window, rover)``, if given, returns a context manager wrapped
     around each rover's frame step (``"frame"``, its rendering outside),
-    tick (``"tick"``) and controller step (``"ctrl"``)."""
+    tick (``"tick"``) and controller step (``"ctrl"``). ``capture=False``
+    builds the rovers eager."""
     device = torch.device(device)
     timer = timer or (lambda window, rover: nullcontext())
     spec = SPEC
@@ -123,7 +126,8 @@ def run_fleet(n_robots, steps, seed=3, W=320, H=240, verbose=True, device="cuda"
 
     for i in range(n_robots):
         clocks.append(SimClock())
-        fleet.append(build_rover(cfg, spec, STARTS[i], peers_of(i), device, clocks[i]))
+        fleet.append(build_rover(cfg, spec, STARTS[i], peers_of(i), device, clocks[i],
+                                 capture))
 
     coverage = []
     for step in range(steps):

@@ -7,7 +7,10 @@ of the compile is a CUDA graph: a region of a step, a function of tensors
 whose shapes the configuration fixes, is run eagerly once (the warm-up, as
 jit's first call compiles), captured into a ``torch.cuda.CUDAGraph`` on its
 second call and replayed from then on, one launch from the host for the
-whole region.
+whole region. A region that rarely recurs is given ``eager`` calls: each
+owner's first ``eager`` calls of it run as plain PyTorch on the current
+stream, and it is captured at the next one, so an owner that calls it once
+or twice pays no warm-up and no capture.
 
 A region is ``fn(*args) -> (writes, out)``. ``writes`` lines up with
 ``args``: where it holds a tree, its leaves are copied into that argument's
@@ -284,13 +287,18 @@ def _run_region(fn, args):
 class CapturedStep:
     """One region of a step, owned by a ``Slot``: eager on its first call
     (on a side stream on CUDA), captured on its second, replayed after; on
-    the CPU eager at every call through the same buffers."""
+    the CPU eager at every call through the same buffers. With ``eager``
+    calls, each owner's first ``eager`` calls before the capture run as
+    plain PyTorch on the current stream, and the next one captures."""
 
     def __init__(self, fn: Callable, name: str, slot: "Slot"):
         self.fn = fn
         self.name = name
         self.slot = slot
         self.calls = 0
+        self.eager = 0                # an owner's calls run eagerly before the capture
+        self._owner: Optional[weakref.ref] = None
+        self._owner_calls = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_in: Optional[List[torch.Tensor]] = None
         self.in_spec = None
@@ -323,11 +331,23 @@ class CapturedStep:
         new_args = tuple(static[i] if i in self.written else a for i, a in enumerate(args))
         return new_args, self.out
 
-    # -- the three kinds of call ----------------------------------------
+    # -- the kinds of call ------------------------------------------------
+    def eager_now(self) -> bool:
+        """Whether this call, of the slot's current owner, runs eagerly
+        before the capture (its first ``eager`` calls while none is captured)."""
+        if self.slot._owner is not self._owner:
+            self._owner, self._owner_calls = self.slot._owner, 0
+        self._owner_calls += 1
+        return self.graph is None and self._owner_calls <= self.eager
+
     def __call__(self, *args):
         dev = self.slot.device
         if dev.type != "cuda":
             return self._eager_through_buffers(args)
+        if self.eager_now():
+            self.calls += 1
+            self.written, out = _run_region(self.fn, args)
+            return args, out
         if self.calls == 0:
             self.calls = 1
             return self._warm_up(args)
@@ -436,12 +456,15 @@ class Slot:
     def owns(self, t: torch.Tensor) -> bool:
         return _storage(t) in self._owned
 
-    def run(self, name: str, fn: Callable, *args):
+    def run(self, name: str, fn: Callable, *args, eager: int = 0):
         """Region ``name`` of this slot on ``args`` (made from ``fn`` on its
-        first use): returns (args with the region's writes, out)."""
+        first use): returns (args with the region's writes, out). ``eager``:
+        the calls of each owner that run as plain PyTorch before the region
+        is captured (``CapturedStep``)."""
         region = self.regions.get(name)
         if region is None:
             region = self.regions[name] = CapturedStep(fn, name, self)
+        region.eager = eager
         return region(*args)
 
     def snapshot(self, tree):
@@ -536,12 +559,12 @@ class SlotState:
             self.claim()
         return self.trees[name].fill_(value)
 
-    def run(self, name: str, fn: Callable, *args):
+    def run(self, name: str, fn: Callable, *args, eager: int = 0):
         """Region ``name`` on ``args``: ``Slot.run`` when capturing, else
         ``run_eagerly``."""
         if not self.capture:
             return run_eagerly(name, fn, *args)
-        return self.claim().run(name, fn, *args)
+        return self.claim().run(name, fn, *args, eager=eager)
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
         """``Slot.stats`` of the claimed slot; empty before or without one."""

@@ -274,18 +274,21 @@ class _Recorder(TorchDispatchMode):
 
 
 def _recorded_regions(monkeypatch, runs):
-    """{region: [op sequence of each call]} of the regions outside the
-    frame step while ``runs()`` drives them."""
+    """{region: {slot: [op sequence of each call]}} of the regions outside
+    the frame step while ``runs()`` drives them (a region of one name in
+    slots of other keys, as the local and the global costmap's, runs other
+    operations: one record a slot)."""
     calls = {}
     real = jit._run_region
 
     def recording(fn, args):
-        name = next(n for s in jit.slots() for n, r in s.regions.items() if r.fn is fn)
+        slot, name = next((s, n) for s in jit.slots() for n, r in s.regions.items()
+                          if r.fn is fn)
         if name in FRAME_STEP:
             return real(fn, args)
         with _Recorder() as rec:
             result = real(fn, args)
-        calls.setdefault(name, []).append(rec.ops)
+        calls.setdefault(name, {}).setdefault(id(slot), []).append(rec.ops)
         return result
 
     monkeypatch.setattr(jit, "_run_region", recording)
@@ -312,13 +315,14 @@ def test_regions_are_capture_safe(world, monkeypatch):
     # the active loop's tick (the FI oracle inside, its inputs a tree of 9
     # leaves), the explorer's and CleanupRoadmap's variant
     assert {"tick+fi/9", "tick/0", "tick+reanchor/0"} <= ticks, ticks
-    for name, seqs in calls.items():
-        assert len(seqs) >= 2, (name, len(seqs))
-        assert seqs[-2] == seqs[-1], f"region {name}: operations differ between two calls"
-        bad = {op[0] for seq in seqs for op in seq if op[1] or op[0].startswith(FORBIDDEN)}
-        assert not bad, f"region {name} holds {sorted(bad)}"
-        uploads = {op[0] for seq in seqs[1:] for op in seq if op[0].startswith(UPLOADS)}
-        assert not uploads, f"region {name} uploads host data at every call: {uploads}"
+    for name, slots in calls.items():
+        for seqs in slots.values():
+            assert len(seqs) >= 2, (name, [len(q) for q in slots.values()])
+            assert seqs[-2] == seqs[-1], f"region {name}: operations differ between two calls"
+            bad = {op[0] for seq in seqs for op in seq if op[1] or op[0].startswith(FORBIDDEN)}
+            assert not bad, f"region {name} holds {sorted(bad)}"
+            uploads = {op[0] for seq in seqs[1:] for op in seq if op[0].startswith(UPLOADS)}
+            assert not uploads, f"region {name} uploads host data at every call: {uploads}"
 
 
 # ---------------------------------------------------------------------------
