@@ -172,8 +172,24 @@ Phases, each printing one line (any failure raises and exits non-zero):
      for 20 ticks and its 32 (16, 256) auction problems (cost matrices,
      assignments, rounds, paths bit-equal; host ms a tick, a solve, a
      round); each new region's capture seconds and pool.
-Every phase from 4 on runs StereoSlam, the EKF, the tick, the fusion, the
-costmaps, the plan, loop closing, the coordinator and the allocators
+ 20. (five lines) the simulation's and the tick tail's captured programs
+     (RevealSensor's reveal, SimCamera's camera and camera+rgbd, the
+     server's publish, los, goal_cell, recovery, evict, wedge and clear,
+     ActiveSlamSystem's restitch) against capture=False: the G = 64
+     ablation world for 120 steps (poses, paths, plans, goals, explored maps
+     and published paths bit-equal; host ms a reveal, a published path, a
+     tick), the tail's regions alone on its servers (reads and writes
+     bit-equal; host ms eager, warm-up, capture and replay, and the calls
+     after which a capture pays), the 640x480 camera alone (stereo with its
+     cloud, RGB-D; bit-equal, a held cloud and depth image unchanged 4
+     frames on), phase 8's loop for 40 frames with 5 forced re-stitches
+     (path, trajectory, goals, clouds, statistics and grids bit-equal;
+     frames/s, host ms), and ``--mode active_slam`` / ``marsyard`` cut to
+     40 frames (frames/s of each mode); each new region's capture seconds
+     and pool.
+Every phase from 4 on runs StereoSlam, the EKF, the tick and its tail, the
+fusion and the re-stitch, the costmaps, the plan, loop closing, the
+coordinator, the allocators, the simulated camera and the reveal sensor
 captured, their default.
 Phases 5, 7, 8, 10 and 12 drive the bench's own loops (bench.timed_pass,
 bench_suite.explore_run, active_loop and ring_run) and measure them through
@@ -185,9 +201,9 @@ gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
 loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, stage: the
 pipeline's ranks summed, bench_modes: phase 16's in-process modes,
 graft_step: one entry() step, captured: phase 17's second captured
-pass, loops: phase 18's last captured pass, and control: phase 19's last
-captured pass of each area), error, device times
-(CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
+pass, loops: phase 18's last captured pass, control: phase 19's last
+captured pass of each area, and sim: phase 20's captured loop), error,
+device times (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
 shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
 tiled kernel) and a PyTorch yardstick where one exists, and its bound; the card's
@@ -1104,7 +1120,8 @@ def explore(dev, spec, cfg, start_xy, n_steps=EXPLORE_STEPS, profile_window=None
         plans=nav.plans, tick_syncs=server.host_syncs, ctrl_syncs=nav.host_syncs,
         nodes=int(server.roadmap.n_nodes), traj=np.array(run["robot"].trajectory),
         diag=dict(vars(server.diag)), path=None if nav._path is None else nav._path.copy(),
-        capture_stats={**nav.capture_stats, **server.capture_stats})
+        capture_stats={**nav.capture_stats, **server.capture_stats,
+                       **run["sensor"].capture_stats})
     return r
 
 
@@ -1298,13 +1315,15 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega=None, surfa
         return out
 
     _reset_counts()
-    _, cams = active_loop(system, nav, landmarks, n_frames, surface_z=surface_z, window=window)
+    fps, cams = active_loop(system, nav, landmarks, n_frames, surface_z=surface_z,
+                            window=window)
     launches = _counts()
     system.finalize()
     gt = camera_matrices(cams)
     occ = system.occupancy().cpu().numpy()
     traj = np.array([(x, y) for x, y, _ in robot.trajectory])
     r.update(system=system, robot=robot, nav=nav, gt=gt, occ=occ, fi=fi_values, infos=infos,
+             fps=fps,
              ekf=ekf, truth=np.array(truth), goals_sent=goals_sent,
              launches=launches, n_kf=int(system.slam.map.n_kf),
              extent=float(np.ptp(traj[:, 0]) + np.ptp(traj[:, 1])), traj=traj,
@@ -1514,6 +1533,7 @@ def phase_rgbd(dev):
     from fitslam_tpu_torch.ops import lie
     from fitslam_tpu_torch.ops.geometry import Intrinsics
     from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils import jit
     from fitslam_tpu_torch.utils.config import FitSlamConfig
     from fitslam_tpu_torch.utils.transfer import upload
 
@@ -1543,6 +1563,7 @@ def phase_rgbd(dev):
         box["clouds"] = gr.add_cloud(box["clouds"], pts, ok, kf_idx)
 
     slam.keyframe_events.append(on_kf)
+    camera = synthetic.SimCamera(K, world.landmarks, W, H, max_depth=12.0, rgbd=True)
     x, y, yaw = -5.0, -5.0, 0.3
     cams = []
     _reset_counts()
@@ -1551,8 +1572,10 @@ def phase_rgbd(dev):
     for step in range(RGBD_FRAMES):
         cam = camera_pose_from_robot(x, y, yaw, device=dev)
         cams.append(cam)
-        img, box["depth"] = synthetic.render_rgbd(K, world.landmarks, cam, width=W, height=H,
-                                                  max_depth=12.0)
+        img, depth = camera.frame(cam)
+        # the keyframe callback reads the depth: held, as the next frame
+        # overwrites the camera's buffer
+        box["depth"] = jit.hold(depth)
         slam.process_rgbd_frame(img, box["depth"])
         if step >= 2:
             yaw += 0.04
@@ -4081,6 +4104,390 @@ def phase_control(dev, smi, loop_run):
             for k in c2["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the simulation and the tick's tail as captured programs
+# ---------------------------------------------------------------------------
+
+SIM_PASSES = (False, True)                 # eager, then captured (warm-up, capture, replays)
+SIM_ABLATION_STEPS = 120                   # G = 64 ablation steps a pass
+SIM_CAMERA_POSES = 8                       # 640x480 frames of the camera alone, a pass
+SIM_HOLD_FRAMES = 4                        # later frames a held cloud outlives
+SIM_ACTIVE_FRAMES = 40                     # frames of the active loop and of each mode, a pass
+SIM_TAIL_CALLS = 6                         # calls of each tail region alone, a pass
+SIM_RESTITCHES = 5                         # forced re-stitches a system
+SIM_REGIONS = ("reveal", "publish", "los", "camera", "camera+rgbd", "recovery", "goal_cell",
+               "evict", "wedge", "clear", "restitch")
+
+
+def _timed(fn):
+    """(fn(), host ms) between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _calls_line(ms, captured):
+    """Host ms of a region's calls: the median eagerly, or the warm-up, the
+    capture and the replays' median."""
+    if not captured:
+        return f"{np.median(ms):.3f}"
+    return f"{ms[0]:.3f} / {ms[1]:.3f} / {np.median(ms[2:]):.3f}"
+
+
+def _break_even(eager_ms, ms):
+    """Calls after which capturing pays: the warm-up's and the capture's
+    cost above two eager calls over what a replay saves (inf when it saves
+    nothing)."""
+    saved = np.median(eager_ms) - np.median(ms[2:])
+    extra = ms[0] + ms[1] - 2 * np.median(eager_ms)
+    return math.inf if saved <= 0 else max(extra, 0.0) / saved
+
+
+def _sim_ablation(dev):
+    """bench_suite.explore_run on the G = 64 ablation world for
+    SIM_ABLATION_STEPS steps, a pass a mode of SIM_PASSES: each controller
+    window's robot pose, path, plans and status, each step's explored map,
+    every published path and the host ms of each reveal and published path."""
+    from fitslam_tpu_torch.models.exploration import ExplorationServer
+    from fitslam_tpu_torch.models.sim_robot import RevealSensor
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+
+    spec = GridSpec2D(**ABLATION_SPEC)
+    passes = []
+    for capture in SIM_PASSES:
+        rec = dict(capture=capture, record=[], explored=[], published=[], reveal_ms=[],
+                   publish_ms=[], tick_ms=[], ctrl_ms=[])
+        real_reveal, real_publish = RevealSensor.reveal, ExplorationServer._build_published_path
+
+        def reveal(sensor, xy):
+            out, ms = _timed(lambda: real_reveal(sensor, xy))
+            rec["reveal_ms"].append(ms)
+            rec["explored"].append(out.clone())
+            return out
+
+        def publish(server, goal, occ, robot_xy):
+            out, ms = _timed(lambda: real_publish(server, goal, occ, robot_xy))
+            rec["publish_ms"].append(ms)
+            rec["published"].append(None if out is None else out.copy())
+            return out
+
+        def window(w, step, fn):
+            out, ms = _timed(fn)
+            rec[f"{w}_ms"].append(ms)
+            return out
+
+        RevealSensor.reveal, ExplorationServer._build_published_path = reveal, publish
+        _reset_counts()
+        try:
+            run = explore_run(ablation_config(), spec, ABLATION_START, SIM_ABLATION_STEPS, dev,
+                              window=window, capture=capture)
+        finally:
+            RevealSensor.reveal = real_reveal
+            ExplorationServer._build_published_path = real_publish
+        nav = run["nav"]
+        rec.update(run=run, launches=_counts(), traj=np.array(run["robot"].trajectory),
+                   diag=dict(vars(run["server"].diag)), plans=nav.plans,
+                   path=None if nav._path is None else nav._path.copy(),
+                   known=run["known"].cpu().numpy())
+        passes.append(rec)
+    return passes
+
+
+def _sim_camera(dev, rgbd):
+    """The 640x480 camera of phase 8 (phase 9's with ``rgbd``) alone over
+    SIM_CAMERA_POSES poses of the rooms world, a pass a mode of SIM_PASSES:
+    each frame's outputs and host ms; in the captured pass the first frame's
+    cloud (its depth image with ``rgbd``) held across SIM_HOLD_FRAMES later
+    frames."""
+    from fitslam_tpu_torch.data import synthetic
+    from fitslam_tpu_torch.models.active_slam import camera_pose_from_robot
+    from fitslam_tpu_torch.ops.geometry import Intrinsics
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils import jit
+
+    W, H = 640, 480
+    cfg = active_config(W, H, 1024, 4, fx=0.625 * W)
+    K = Intrinsics.from_config(cfg.camera, dev)
+    landmarks = rooms_world(GridSpec2D(64, 0.25, -8.0, -8.0), dev, floor_points=4000).landmarks
+    poses = [(-5.0 + 0.3 * i, -5.0 + 0.1 * i, 0.3 + 0.05 * i) for i in range(SIM_CAMERA_POSES)]
+    passes = []
+    for capture in SIM_PASSES:
+        cloud = 0 if rgbd else cfg.traversability.max_points_per_cloud
+        cam = synthetic.SimCamera(K, landmarks, W, H, max_depth=12.0, cloud_points=cloud,
+                                  cloud_depth=8.0, rgbd=rgbd, capture=capture)
+        outs, ms, held = [], [], None
+        for i, pose in enumerate(poses):
+            T = camera_pose_from_robot(*pose, device=dev)
+            out, t = _timed(lambda: cam.frame(T))
+            ms.append(t)
+            outs.append(jit.clone(out))
+            if i == 0:
+                held = jit.hold(out[1:] if rgbd else out[2:])
+            if i == SIM_HOLD_FRAMES:
+                kept = jit.clone(held)
+        passes.append(dict(capture=capture, outs=outs, ms=ms, kept=kept,
+                           stats=cam.capture_stats.get(cam.name), name=cam.name))
+        del cam
+    e, c = passes
+    same = all(torch.equal(a, b) for x, y in zip(e["outs"], c["outs"]) for a, b in zip(x, y))
+    first = e["outs"][0][1:] if rgbd else e["outs"][0][2:]
+    held_ok = all(torch.equal(a, b) for a, b in zip(c["kept"], first))
+    return passes, same, held_ok
+
+
+def _sim_tail(passes):
+    """The tail's regions alone on each ablation pass's server at its final
+    grid (RARE_EAGER_CALLS 0, so the captured pass captures at its second
+    call): SIM_TAIL_CALLS recovery probes, goal-cell probes, evictions of 64
+    circles, wedge marks and ClearCostmap discs, each timed and its read or
+    write kept."""
+    from fitslam_tpu_torch.models import exploration as ex
+
+    rng = np.random.RandomState(9)
+    poses = [(tuple(rng.uniform(-7, 7, 2)), float(rng.uniform(-3, 3)))
+             for _ in range(SIM_TAIL_CALLS)]
+    ebufs = [np.concatenate([rng.uniform(-7, 7, (64, 2)), rng.uniform(0.3, 0.8, (64, 1))],
+                            axis=1).astype(np.float32) for _ in range(SIM_TAIL_CALLS)]
+    out = []
+    saved = ex.RARE_EAGER_CALLS
+    ex.RARE_EAGER_CALLS = dict.fromkeys(saved, 0)
+    try:
+        for p in passes:
+            server, sensor = p["run"]["server"], p["run"]["sensor"]
+            occ = server._overlaid(sensor.explored)
+            calls = {
+                "recovery": lambda xy, yaw, eb: np.array(server._free_distances(occ, xy, yaw)),
+                "goal_cell": lambda xy, yaw, eb: server._goal_cell(occ, np.array(xy)),
+                "evict": lambda xy, yaw, eb: (server._evict(eb), server.lethal_overlay)[1],
+                "wedge": lambda xy, yaw, eb: (server._mark_wedge(xy, yaw), server.wedge_age)[1],
+                "clear": lambda xy, yaw, eb: (server._clear_disc(xy), server.wedge_age)[1],
+            }
+            got = {}
+            for name, call in calls.items():
+                vals, ms = [], []
+                for (xy, yaw), eb in zip(poses, ebufs):
+                    v, t = _timed(lambda: call(xy, yaw, eb))
+                    vals.append(v.clone() if isinstance(v, torch.Tensor) else v)
+                    ms.append(t)
+                got[name] = (vals, ms)
+            out.append(dict(capture=p["capture"], got=got, stats=server.capture_stats))
+    finally:
+        ex.RARE_EAGER_CALLS = saved
+    e, c = out
+    def same(a, b):
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)
+
+    diffs = [n for n in e["got"]
+             if not all(same(a, b) for a, b in zip(e["got"][n][0], c["got"][n][0]))]
+    return out, diffs
+
+
+def _sim_active(dev):
+    """Phase 8's active loop (640x480, 1024 features, 4 levels, the captured
+    camera) for SIM_ACTIVE_FRAMES frames, a pass a mode of SIM_PASSES, then
+    SIM_RESTITCHES re-stitches on each system after forced corrections
+    (RESTITCH_EAGER_CALLS 0): the robot's path, the SLAM trajectory, goals,
+    the cloud buffer, the statistics and the grid, frames/s and host ms."""
+    from fitslam_tpu_torch.models import active_slam as act
+    from fitslam_tpu_torch.ops import lie
+    from fitslam_tpu_torch.ops.grid import GridSpec2D
+    from fitslam_tpu_torch.utils import jit
+
+    spec = GridSpec2D(64, 0.25, -8.0, -8.0)
+    W, H = 640, 480
+    cfg = active_config(W, H, 1024, 4, fx=0.625 * W)
+    landmarks = rooms_world(spec, dev, floor_points=4000).landmarks
+    passes = []
+    saved = act.RESTITCH_EAGER_CALLS
+    act.RESTITCH_EAGER_CALLS = 0
+    try:
+        for capture in SIM_PASSES:
+            r = run_active(dev, cfg, spec, landmarks, (-5.0, -5.0, 0.3), SIM_ACTIVE_FRAMES,
+                           capture=capture)
+            system = r["system"]
+            restitch = []
+            for k in range(1, SIM_RESTITCHES + 1):
+                m = system.slam.map
+                shift = torch.tensor([0.02 * k, -0.01 * k, 0.005], device=dev)
+                system.slam.map = m._replace(kf_T_cw=lie.SE3(m.kf_T_cw.R.clone(),
+                                                             m.kf_T_cw.t + shift))
+                system._restitch = True
+                occ, ms = _timed(system.occupancy)
+                restitch.append((ms, jit.clone(system._fstats), occ.clone()))
+            passes.append(dict(
+                capture=capture, fps=r["fps"], launches=r["launches"], traj=r["traj"],
+                slam=np.array(system.slam.trajectory), goals=r["goals_sent"],
+                clouds=jit.clone(system.clouds), n_kf=r["n_kf"], restitch=restitch,
+                frame_ms=_per(r, "frame", "s") * 1e3, tick_ms=_per(r, "tick", "s") * 1e3,
+                ctrl_ms=_per(r, "ctrl", "s") * 1e3,
+                stats={**system.capture_stats}))
+            del r, system
+    finally:
+        act.RESTITCH_EAGER_CALLS = saved
+    e, c = passes
+    same = (np.array_equal(e["traj"], c["traj"]) and np.array_equal(e["slam"], c["slam"])
+            and len(e["goals"]) == len(c["goals"])
+            and all(np.array_equal(a[0], b[0]) and a[1] == b[1]
+                    for a, b in zip(e["goals"], c["goals"]))
+            and all(torch.equal(a, b) for a, b in zip(jit.flatten(e["clouds"])[0],
+                                                      jit.flatten(c["clouds"])[0]))
+            and e["n_kf"] == c["n_kf"])
+    same_restitch = all(
+        torch.equal(a[2], b[2]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        for a, b in zip(e["restitch"], c["restitch"]))
+    return passes, same, same_restitch
+
+
+def phase_sim(dev, smi):
+    """[20 sim]: the simulation's and the tick tail's captured programs
+    (RevealSensor's reveal, SimCamera's camera and camera+rgbd, the
+    server's publish, los, goal_cell, recovery, evict, wedge and clear,
+    ActiveSlamSystem's restitch) against capture=False: the G = 64 ablation
+    world for SIM_ABLATION_STEPS steps (robot poses, paths, plans, goals,
+    explored maps and published paths bit-equal; host ms a reveal, a
+    published path, a tick, a controller window); the 640x480 camera alone
+    (images, clouds and depth bit-equal, a held cloud or depth image
+    unchanged SIM_HOLD_FRAMES frames on; host ms a frame); the tail's regions
+    alone on the ablation servers (each read and write bit-equal; host ms,
+    calls for a capture to pay); phase 8's loop for SIM_ACTIVE_FRAMES frames
+    and SIM_RESTITCHES forced re-stitches (the robot's path, the SLAM
+    trajectory, goals, clouds, statistics and grids bit-equal; frames/s,
+    host ms); ``--mode active_slam`` and ``--mode marsyard`` cut to
+    SIM_ACTIVE_FRAMES frames, frames/s of each mode. Each region's capture
+    seconds and pool. Returns the captured loop's launches."""
+    from fitslam_tpu_torch import bench_suite
+
+    t_phase = time.monotonic()
+    mode = {False: "eager", True: "captured"}
+    diffs = []
+
+    # -- the G = 64 ablation world -------------------------------------------
+    abl = _sim_ablation(dev)
+    e, c = abl
+    for key in ("traj", "known"):
+        if not np.array_equal(e[key], c[key]):
+            diffs.append(f"ablation {key}")
+    if not (len(e["explored"]) == len(c["explored"])
+            and all(torch.equal(a, b) for a, b in zip(e["explored"], c["explored"]))):
+        diffs.append("ablation explored maps")
+    if not (len(e["published"]) == len(c["published"]) and all(
+            (a is None and b is None) or (a is not None and b is not None and np.array_equal(a, b))
+            for a, b in zip(e["published"], c["published"]))):
+        diffs.append("ablation published paths")
+    # explore_run keeps CleanupRoadmap on the host's clock: a slower pass
+    # counts more cleanups, whose re-anchoring to the identity keyframe of a
+    # run without SLAM moves nothing (the paths above are held equal)
+    same_diag = ({k: v for k, v in e["diag"].items() if k != "loop_corrections"}
+                 == {k: v for k, v in c["diag"].items() if k != "loop_corrections"})
+    if not (same_diag and e["plans"] == c["plans"] and e["launches"] == c["launches"]):
+        diffs.append(f"ablation counts: {e['diag']}, {e['plans']} plans, {e['launches']} / "
+                     f"{c['diag']}, {c['plans']}, {c['launches']}")
+    cs = {**c["run"]["sensor"].capture_stats, **c["run"]["server"].capture_stats}
+    log(f"[20 sim] G=64 ablation world, {SIM_ABLATION_STEPS} steps, passes "
+        + ", ".join(mode[p["capture"]] for p in abl)
+        + f": robot poses, paths, plans, goals, explored maps and {len(e['published'])} "
+        f"published paths bit-equal: {not any(d.startswith('ablation') for d in diffs)}; "
+        f"{e['diag']['goals_sent']} goals, {e['plans']} plans, K3 {e['launches']['sweep']}; "
+        "host ms (eager median; captured warm-up / capture / replays' median): a reveal "
+        f"{_calls_line(e['reveal_ms'], False)}; {_calls_line(c['reveal_ms'], True)}, a published "
+        f"path (publish + host walk + los) {_calls_line(e['publish_ms'], False)}; "
+        f"{_calls_line(c['publish_ms'], True)}; a tick {np.median(e['tick_ms']):.2f} / "
+        f"{np.median(c['tick_ms']):.2f}, 4 controller steps {np.median(e['ctrl_ms']):.3f} / "
+        f"{np.median(c['ctrl_ms']):.3f} (eager / captured, medians); regions (capture s, pool): "
+        + "; ".join(f"{k} {_pool(cs[k])}" for k in ("reveal", "publish", "los") if k in cs)
+        + f"; {smi}")
+
+    # -- the tail's regions alone ---------------------------------------------
+    tail, tail_diffs = _sim_tail(abl)
+    diffs += [f"tail {n}" for n in tail_diffs]
+    te, tc = tail
+    log(f"[20 sim] the tick's tail alone on the ablation servers, {SIM_TAIL_CALLS} calls a "
+        f"region, eager counts 0: reads and writes bit-equal: {not tail_diffs}; host ms "
+        "(eager median; captured warm-up / capture / replays' median; calls for a capture "
+        "to pay): "
+        + "; ".join(f"{n} {_calls_line(te['got'][n][1], False)}; "
+                    f"{_calls_line(tc['got'][n][1], True)}; "
+                    f"{_break_even(te['got'][n][1], tc['got'][n][1]):.1f}"
+                    for n in te["got"])
+        + "; regions (capture s, pool): "
+        + "; ".join(f"{n} {_pool(tc['stats'][n])}" for n in te["got"] if n in tc["stats"])
+        + f"; {smi}")
+    del abl, tail
+
+    # -- the camera alone ------------------------------------------------------
+    cams = {}
+    for rgbd in (False, True):
+        passes, same, held_ok = _sim_camera(dev, rgbd)
+        cams[rgbd] = passes
+        if not same:
+            diffs.append(f"camera{'+rgbd' if rgbd else ''} outputs")
+        if not held_ok:
+            diffs.append(f"camera{'+rgbd' if rgbd else ''} held view")
+        if not (passes[1]["stats"] or {}).get("captured"):
+            diffs.append(f"camera{'+rgbd' if rgbd else ''} not captured")
+    log(f"[20 sim] SimCamera alone at 640x480, {SIM_CAMERA_POSES} poses of the rooms world: "
+        f"stereo + a 4096-point cloud and RGB-D (image + depth) bit-equal to capture=False: "
+        f"{not any(d.startswith('camera') for d in diffs)}, a frame's cloud / depth image held "
+        f"({SIM_HOLD_FRAMES} frames on) unchanged: "
+        f"{not any(d.endswith('held view') for d in diffs)}; host ms a frame (eager median; "
+        "captured warm-up / capture / replays' median): "
+        + "; ".join(f"{p[1]['name']} {_calls_line(p[0]['ms'], False)}; "
+                    f"{_calls_line(p[1]['ms'], True)}; calls for a capture to pay "
+                    f"{_break_even(p[0]['ms'], p[1]['ms']):.1f}; {_pool(p[1]['stats'])}"
+                    for p in cams.values())
+        + f"; {smi}")
+    del cams
+
+    # -- phase 8's loop and the re-stitch --------------------------------------
+    act, same, same_restitch = _sim_active(dev)
+    if not same:
+        diffs.append("active loop")
+    if not same_restitch:
+        diffs.append("restitch")
+    ae, ac = act
+    re_ms = [[t for t, _, _ in p["restitch"]] for p in act]
+    log(f"[20 sim] phase 8's loop at 640x480, {SIM_ACTIVE_FRAMES} frames (the captured camera "
+        f"and {SIM_RESTITCHES} forced re-stitches), passes "
+        + ", ".join(mode[p["capture"]] for p in act)
+        + f": the robot's path, SLAM trajectory, goals, clouds, statistics and grids "
+        f"bit-equal: {same and same_restitch}; {ae['n_kf']} keyframes; frames/s from frame 8 "
+        + " / ".join(f"{p['fps']:.2f}" for p in act)
+        + " (eager / captured); host ms a frame step, tick and controller step "
+        + " / ".join(f"{p['frame_ms']:.2f}, {p['tick_ms']:.2f}, {p['ctrl_ms']:.3f}"
+                     for p in act)
+        + f"; a re-stitch with its grid (eager median; captured warm-up / capture / "
+        f"replays' median) {_calls_line(re_ms[0], False)}; {_calls_line(re_ms[1], True)}; "
+        f"calls for a capture to pay {_break_even(re_ms[0], re_ms[1]):.1f}; regions "
+        "(capture s, pool): "
+        + "; ".join(f"{k} {_pool(s)}" for k, s in ac["stats"].items()
+                    if k.startswith(("restitch", "fuse_grid")))
+        + f"; {smi}")
+
+    # -- the two modes -----------------------------------------------------------
+    modes = {}
+    for name, fn in (("active_slam", bench_suite.bench_active_slam),
+                     ("marsyard", bench_suite.bench_marsyard)):
+        modes[name] = [_in_process(fn, False, n_frames=SIM_ACTIVE_FRAMES, device=dev,
+                                   capture=capture)["value"] for capture in SIM_PASSES]
+    log(f"[20 sim] --mode active_slam and --mode marsyard cut to {SIM_ACTIVE_FRAMES} frames, "
+        "frames/s (eager / captured): "
+        + "; ".join(f"{n} {v[0]:.3f} / {v[1]:.3f}" for n, v in modes.items())
+        + f"; phase {time.monotonic() - t_phase:.1f} s; {smi}")
+
+    if diffs:
+        raise AssertionError(f"[20 sim] captured and eager differ: {diffs}")
+    captured = {**cs, **tc["stats"], **ac["stats"]}
+    missing = [n for n in SIM_REGIONS if n not in ("camera", "camera+rgbd")
+               and not any(k.startswith(n) and s["captured"] for k, s in captured.items())]
+    if missing:
+        raise AssertionError(f"[20 sim] regions not captured: {missing}")
+    if ac["launches"]["describe"] <= 0 or ac["launches"]["sweep"] <= 0:
+        raise AssertionError("[20 sim] K1 or K3 was not launched in the captured loop")
+    return ac["launches"]
+
+
 def _kernel_times(prof):
     """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
     out = {}
@@ -4218,6 +4625,7 @@ def main() -> int:
     paths["captured"] = phase_captured(dev, smi)
     paths["loops"] = phase_loops(dev, smi)
     paths["control"] = phase_control(dev, smi, loop)
+    paths["sim"] = phase_sim(dev, smi)
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just
@@ -4244,7 +4652,7 @@ def main() -> int:
          "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": paths["explore"]["sweep"],
          "launches_by_path": by_path("sweep"), **k3},
     ]
-    log(f"[done] phases 1-19 in {time.monotonic() - t_script:.1f} s")
+    log(f"[done] phases 1-20 in {time.monotonic() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

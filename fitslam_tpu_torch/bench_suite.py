@@ -26,7 +26,10 @@ two ``torch.cuda.synchronize`` calls (frame and step rates) or by CUDA events
 (kernels), never on the host clock alone. Every record's ``extra`` carries
 ``platform`` ("gpu" or "cpu") and ``device``: the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line. Files the modes write go
-under ``build/bench/`` (git-ignored); ``--out`` has no default.
+under ``build/bench/`` (git-ignored); ``--out`` has no default. The loops'
+programs run captured (``utils/jit.py``: the camera, the reveal sensor, the
+frame step, the tick, the plan); the functions of the active_slam,
+marsyard and ablation modes take ``capture=False`` for the eager run.
 
 Baselines are the reference's: no published numbers, so SLAM modes are held
 to 60 frames/s (2x a 30 frames/s CPU ORB-SLAM3), the active-SLAM modes to the
@@ -481,11 +484,12 @@ def active_system(cfg, spec, robot, device, max_omega=None, twist_mux=None, capt
 
 def active_loop(system, nav, landmarks, n_frames: int, surface_z=None, window=_call):
     """The active-SLAM loop of both modes: a stereo frame and its frustum
-    cloud every step, a tick every TICK_EVERY steps, a controller step every
-    step, and the simulation's clock advanced by a step. ``window`` runs the
-    frame ("frame"), the tick ("tick"), the controller step ("ctrl") and,
-    with the EKF on, the read of its estimate ("pose"). Returns (frames a
-    second from step 8 on, the first steps being set-up; the camera poses)."""
+    cloud every step (a ``SimCamera``, captured as the system is), a tick
+    every TICK_EVERY steps, a controller step every step, and the
+    simulation's clock advanced by a step. ``window`` runs the frame
+    ("frame"), the tick ("tick"), the controller step ("ctrl") and, with the
+    EKF on, the read of its estimate ("pose"). Returns (frames a second from
+    step 8 on, the first steps being set-up; the camera poses)."""
     from fitslam_tpu_torch.data import synthetic
     from fitslam_tpu_torch.models.active_slam import camera_pose_from_robot
     from fitslam_tpu_torch.ops.geometry import Intrinsics
@@ -494,18 +498,17 @@ def active_loop(system, nav, landmarks, n_frames: int, surface_z=None, window=_c
         raise ValueError(f"the loop is timed from its step 8 on: {n_frames} frames are too few")
     cfg, dev, robot = system.cfg, system.device, nav.robot
     W, H = cfg.camera.width, cfg.camera.height
-    K = Intrinsics.from_config(cfg.camera, dev)
+    camera = synthetic.SimCamera(Intrinsics.from_config(cfg.camera, dev), landmarks, W, H,
+                                 max_depth=12.0,
+                                 cloud_points=cfg.traversability.max_points_per_cloud,
+                                 cloud_depth=8.0, capture=system.capture)
     t0, cams = None, []
     for step in range(n_frames):
         z = 0.8 if surface_z is None else surface_z(robot.x, robot.y) + 0.8
         cam = camera_pose_from_robot(robot.x, robot.y, robot.yaw, height=z, device=dev)
         if step == 0:
             system.set_world_anchor(cam)
-        left, right = synthetic.render_stereo(K, landmarks, cam, width=W, height=H,
-                                              max_depth=12.0)
-        cloud, cvalid = synthetic.frustum_cloud(K, landmarks, cam,
-                                                max_points=cfg.traversability.max_points_per_cloud,
-                                                max_depth=8.0, width=W, height=H)
+        left, right, cloud, cvalid = camera.frame(cam)
         if step == 8:
             t0 = clock(dev)
         else:
@@ -554,11 +557,12 @@ def lethal_scores(occ, gt_lethal, spec, traj_xy):
     return grid_lethal, precision, int(gt_lethal[cells[:, 1], cells[:, 0]].sum()), cells
 
 
-def bench_active_slam(small: bool, n_frames: int = 80, device="cuda"):
+def bench_active_slam(small: bool, n_frames: int = 80, device="cuda", capture: bool = True):
     """The full loop: stereo SLAM, a cloud a keyframe, the traversability
     grid, FI-gated exploration and simulated nav over the rooms world of
     seed 3 (G = 64), frames of the loop a second (the reference's
-    "ticks/s")."""
+    "ticks/s"). ``capture=False`` runs the loop's captured programs (the
+    camera's among them) as plain PyTorch."""
     from fitslam_tpu_torch.models import sim_robot as simr
     from fitslam_tpu_torch.ops import grid as gr
 
@@ -567,7 +571,7 @@ def bench_active_slam(small: bool, n_frames: int = 80, device="cuda"):
     spec = gr.GridSpec2D(size=64, resolution=0.25, origin_x=-8.0, origin_y=-8.0)
     cfg = active_config(W, H, 320 if small else 1024, 2 if small else 4, fx=0.625 * W)
     robot = simr.DiffDriveRobot(x=-5.0, y=-5.0, yaw=0.3, v_max=0.8, w_max=1.0)
-    system, nav = active_system(cfg, spec, robot, dev)
+    system, nav = active_system(cfg, spec, robot, dev, capture=capture)
     ticks, cams = active_loop(system, nav, rooms_world(spec, dev).landmarks, n_frames)
     system.finalize()
     ate = ate_world(system.slam.trajectory, camera_matrices(cams))
@@ -583,12 +587,13 @@ def bench_active_slam(small: bool, n_frames: int = 80, device="cuda"):
     }, dev))
 
 
-def bench_marsyard(small: bool, n_frames: int = 150, device="cuda"):
+def bench_marsyard(small: bool, n_frames: int = 150, device="cuda", capture: bool = True):
     """The active-SLAM loop on the marsyard heightfield (seed 3, 320x240):
     frames a second, the grid's lethal cells against the ground truth's
     (dilated 3 cells), lethal cells driven through and coverage. Writes the
     coverage curve and the trajectory over the final grid under
-    build/bench/."""
+    build/bench/. ``capture=False`` runs the loop's captured programs as
+    plain PyTorch."""
     from fitslam_tpu_torch.data import synthetic
     from fitslam_tpu_torch.models import sim_robot as simr
     from fitslam_tpu_torch.ops import grid as gr
@@ -599,7 +604,7 @@ def bench_marsyard(small: bool, n_frames: int = 150, device="cuda"):
     cfg = active_config(320, 240, 320, 2, fx=200.0)
     mw = synthetic.marsyard_world(spec, seed=3, points_per_cell=6, device=dev)
     robot = simr.DiffDriveRobot(x=-5.0, y=-0.5, yaw=0.2, v_max=0.8, w_max=1.0)
-    system, nav = active_system(cfg, spec, robot, dev, max_omega=0.9)
+    system, nav = active_system(cfg, spec, robot, dev, max_omega=0.9, capture=capture)
     coverage = []
 
     def window(name, step, fn):
@@ -690,24 +695,23 @@ def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call,
     curves comparable) and 4 controller steps a step. ``window`` runs the
     tick ("tick") and the step's 4 controller steps ("ctrl"). Returns the
     known cells after each step (an int64 tensor on the device, read by the
-    caller once), the server, the nav, the robot and the explored map.
-    ``capture=False`` runs the server's and the nav's captured programs as
-    plain PyTorch."""
+    caller once), the server, the nav, the robot, the explored map and the
+    reveal sensor. ``capture=False`` runs the sensor's, the server's and the
+    nav's captured programs as plain PyTorch."""
     from fitslam_tpu_torch.models import sim_robot as sim
     from fitslam_tpu_torch.models.exploration import ExplorationServer
     from fitslam_tpu_torch.models.sim_nav import SimNavInterface
     from fitslam_tpu_torch.ops import grid as gr
-    from fitslam_tpu_torch.utils.transfer import upload
 
     dev = torch.device(device)
-    gt = torch.as_tensor(sim.make_rooms_world(spec, seed=1), device=dev)
-    state = {"explored": torch.full((spec.size, spec.size), gr.UNKNOWN, dtype=torch.uint8,
-                                    device=dev)}
+    sensor = sim.RevealSensor(spec, torch.as_tensor(sim.make_rooms_world(spec, seed=1),
+                                                    device=dev),
+                              dev, range_m=3.0, capture=capture)
     robot = sim.DiffDriveRobot(x=start_xy[0], y=start_xy[1], yaw=0.0, v_max=1.2, w_max=2.5)
-    nav = SimNavInterface(cfg, spec, robot, lambda: state["explored"], dt=0.15, device=dev,
+    nav = SimNavInterface(cfg, spec, robot, lambda: sensor.explored, dt=0.15, device=dev,
                           capture=capture)
     nav.controller.max_omega = 2.0
-    server = ExplorationServer(cfg, spec, lambda: state["explored"], nav,
+    server = ExplorationServer(cfg, spec, lambda: sensor.explored, nav,
                                get_robot_pose=lambda: (robot.xy, robot.yaw), device=dev,
                                capture=capture)
 
@@ -717,21 +721,20 @@ def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call,
 
     known = torch.zeros(n_steps, dtype=torch.int64, device=dev)
     for step in range(n_steps):
-        state["explored"] = sim.reveal_sensor(spec, gt, state["explored"],
-                                              upload(np.asarray(robot.xy, np.float32), dev),
-                                              range_m=3.0)
+        explored = sensor.reveal(robot.xy)
         if step % 2 == 0:
             window("tick", step, server.tick)
         window("ctrl", step, controller_steps)
-        known[step] = (state["explored"] != gr.UNKNOWN).sum()
-    return dict(known=known, server=server, nav=nav, robot=robot, explored=state["explored"])
+        known[step] = (explored != gr.UNKNOWN).sum()
+    return dict(known=known, server=server, nav=nav, robot=robot, explored=sensor.explored,
+                sensor=sensor)
 
 
 ABLATION_SPEC = dict(size=64, resolution=0.25, origin_x=-8.0, origin_y=-8.0)
 ABLATION_START = (-5.0, -5.0)
 
 
-def bench_ablation(small: bool, n_steps: int = 300, device="cuda"):
+def bench_ablation(small: bool, n_steps: int = 300, device="cuda", capture: bool = True):
     """One rooms world (seed 1, G = 64) explored with each frontier cost
     method (arrival information + roadmap, RandomCosts, ClosestFrontier):
     final coverage, steps to 50 % and path length of each; the curves go to
@@ -743,7 +746,8 @@ def bench_ablation(small: bool, n_steps: int = 300, device="cuda"):
     spec = gr.GridSpec2D(**ABLATION_SPEC)
     curves, finals = {}, {}
     for name, meth in ABLATION_METHODS.items():
-        run = explore_run(ablation_config(meth), spec, ABLATION_START, n_steps, dev)
+        run = explore_run(ablation_config(meth), spec, ABLATION_START, n_steps, dev,
+                          capture=capture)
         # the fraction of known cells a step, read once at the end
         cov = (run["known"].cpu().numpy() / float(spec.size * spec.size)).tolist()
         curves[name] = cov

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -38,7 +39,7 @@ import torch
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics, project_stereo
 from fitslam_tpu_torch.ops.numerics import fma32, segment_sum_fixed, top_k_stable, true_div
-from fitslam_tpu_torch.utils import prng
+from fitslam_tpu_torch.utils import jit, prng
 from fitslam_tpu_torch.utils.transfer import upload
 
 # the integer the reference's world_from_occupancy seeds its RandomState
@@ -247,17 +248,22 @@ def _blob_style(landmarks: torch.Tensor, splat_sigma: float):
     return 60.0 + 195.0 * _hash01(idx), splat_sigma * (0.6 + 1.4 * _hash01(idx + 77777))
 
 
+def _stereo_images(K: Intrinsics, landmarks: torch.Tensor, T_wc: lie.SE3, lum, sig,
+                   width: int, height: int, max_depth: float):
+    left = _eye_image(K, landmarks, T_wc, lum, sig, width, height, max_depth)
+    # right camera: offset by +baseline along the camera x-axis
+    right = _eye_image(K, landmarks, lie.SE3(T_wc.R, T_wc.t + T_wc.R[..., :, 0] * K.baseline),
+                       lum, sig, width, height, max_depth)
+    return left, right
+
+
 def render_dense(K: Intrinsics, landmarks: torch.Tensor, T_wc: lie.SE3, width: int = 640,
                  height: int = 480, splat_sigma: float = 1.5,
                  max_depth: float = 25.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render (left, right) grayscale images: landmarks splatted as Gaussian
     blobs with per-landmark deterministic intensity and size."""
     lum, sig = _blob_style(landmarks, splat_sigma)
-    left = _eye_image(K, landmarks, T_wc, lum, sig, width, height, max_depth)
-    # right camera: offset by +baseline along the camera x-axis
-    right = _eye_image(K, landmarks, lie.SE3(T_wc.R, T_wc.t + T_wc.R[..., :, 0] * K.baseline),
-                       lum, sig, width, height, max_depth)
-    return left, right
+    return _stereo_images(K, landmarks, T_wc, lum, sig, width, height, max_depth)
 
 
 def render_stereo(K: Intrinsics, landmarks: torch.Tensor, T_wc: lie.SE3,
@@ -275,6 +281,11 @@ def render_rgbd(K: Intrinsics, landmarks: torch.Tensor, T_wc: lie.SE3,
     image (z-buffered point splats; 0 = no return). The depth camera analog
     of the reference's RGB-D input (orb_slam3 rgbd.launch.py)."""
     lum, sig = _blob_style(landmarks, splat_sigma)
+    return _rgbd_images(K, landmarks, T_wc, lum, sig, width, height, max_depth)
+
+
+def _rgbd_images(K: Intrinsics, landmarks: torch.Tensor, T_wc: lie.SE3, lum, sig,
+                 width: int, height: int, max_depth: float):
     img = _eye_image(K, landmarks, T_wc, lum, sig, width, height, max_depth)
     p_c = _to_camera(T_wc, landmarks)
     uvr, z_ok = project_stereo(K, p_c)
@@ -513,3 +524,72 @@ def frustum_cloud(
         pts = torch.cat([pts, pts.new_zeros((pad, 3))], dim=0)
         mask = torch.cat([mask, mask.new_zeros((pad,))], dim=0)
     return pts, mask
+
+
+# ---------------------------------------------------------------------------
+# The simulated camera as a captured program
+# ---------------------------------------------------------------------------
+
+
+def camera_region(landmarks, lum, sig, K, T_wc, *, width: int, height: int, max_depth: float,
+                  rgbd: bool, cloud_points: int, cloud_depth: float):
+    """Region ``camera`` / ``camera+rgbd``: the frame at the staged pose
+    ``T_wc`` (left and right images, or the image and its depth image) and,
+    with ``cloud_points``, ``frustum_cloud``'s points and mask. Writes
+    nothing."""
+    images = (_rgbd_images if rgbd else _stereo_images)(K, landmarks, T_wc, lum, sig, width,
+                                                        height, max_depth)
+    if not cloud_points:
+        return (), images
+    return (), images + frustum_cloud(K, landmarks, T_wc, cloud_points, max_depth=cloud_depth,
+                                      width=width, height=height)
+
+
+class SimCamera:
+    """The simulated stereo (or, with ``rgbd``, RGB-D) camera over one
+    landmark world, with its frustum cloud of ``cloud_points`` points out to
+    ``cloud_depth`` when that is not 0: the reference's compiled
+    ``render_stereo`` / ``render_rgbd`` (and ``frustum_cloud`` on the same
+    pose) as region ``camera`` / ``camera+rgbd`` of its slot
+    (``utils/jit.py``; a CUDA graph on a CUDA device). The landmarks, their
+    blob style and the intrinsics live in the slot's buffers, so a frame
+    copies in only its pose. ``frame`` returns views of the region's output
+    buffer, which the next frame overwrites: a caller that keeps one across
+    frames (a cloud pending a keyframe) takes ``jit.hold`` of it.
+    ``capture=False`` runs the region as plain PyTorch, the same functions
+    as ``render_stereo``, ``render_rgbd`` and ``frustum_cloud``."""
+
+    def __init__(self, K: Intrinsics, landmarks: torch.Tensor, width: int = 640,
+                 height: int = 480, max_depth: float = 18.0, cloud_points: int = 0,
+                 cloud_depth: float = 10.0, rgbd: bool = False, splat_sigma: float = 1.2,
+                 capture: bool = True):
+        self.device = landmarks.device
+        self.capture = capture
+        self.name = "camera+rgbd" if rgbd else "camera"
+        self._fn = functools.partial(camera_region, width=width, height=height,
+                                     max_depth=max_depth, rgbd=rgbd, cloud_points=cloud_points,
+                                     cloud_depth=cloud_depth)
+        lum, sig = _blob_style(landmarks, splat_sigma)
+        key = ("SimCamera", width, height, max_depth, splat_sigma, cloud_points, cloud_depth,
+               rgbd, landmarks.shape[0])
+        self._slot_state = jit.SlotState(self, key, self.device, {
+            "world": (landmarks, lum, sig),
+            "K": Intrinsics(*(torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                              for v in K)),
+        }, capture)
+
+    @property
+    def capture_stats(self):
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path."""
+        return self._slot_state.stats()
+
+    def frame(self, T_wc: lie.SE3):
+        """The frame at the world-from-camera pose ``T_wc`` (device
+        tensors): (left, right) or (image, depth), then (cloud points, mask)
+        with a cloud."""
+        if self.capture:
+            self._slot_state.claim()     # the region then reads its buffers
+        world = self._slot_state["world"]
+        _, out = self._slot_state.run(self.name, self._fn, *world, self._slot_state["K"], T_wc)
+        return out

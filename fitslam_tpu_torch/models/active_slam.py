@@ -28,9 +28,12 @@ With ``capture`` (the default) the loop's compiled programs run captured
 (``ExplorationServer``, the FI oracle's device work inside it) and the
 traversability fusion, as two regions of this object's slot:
 ``fuse_keyframe`` (a keyframe's cloud into the buffer and the running
-per-cell statistics) and ``fuse_grid`` (statistics to the thresholded grid).
-``clouds``, the statistics and the grid live in the slot's buffers; the
-re-stitch after a loop closure stays eager. ``capture=False`` runs every
+per-cell statistics), ``fuse_grid`` (statistics to the thresholded grid)
+and ``restitch`` (after a loop correction, the whole buffer through the
+keyframes' current poses; an owner's first ``RESTITCH_EAGER_CALLS`` eager).
+``clouds``, the statistics and the grid live in the slot's buffers. A frame's
+cloud pending its keyframe is held (``jit.hold``): a simulated camera's
+next frames overwrite the buffer it came in. ``capture=False`` runs every
 region as plain PyTorch: the eager path that captured runs are held to.
 """
 
@@ -97,6 +100,12 @@ def pose_information_at(inputs, pose: torch.Tensor, *, max_distance: float, nois
                                    saturation_exponent=saturation_exponent)
 
 
+def world_anchored(kf_T_cw: lie.SE3, anchor: Optional[lie.SE3]) -> lie.SE3:
+    """Keyframe camera-from-world poses in the world frame, given the first
+    camera's world pose ``anchor`` (None: the SLAM frame is the world's)."""
+    return kf_T_cw if anchor is None else lie.compose(kf_T_cw, lie.inverse(anchor))
+
+
 def fuse_keyframe_region(clouds, stats, cloud_c, valid, kf_idx, kf_T_cw, anchor, *,
                          spec: GridSpec2D, scatter: bool):
     """Region ``fuse_keyframe``: a keyframe's camera-frame cloud into the
@@ -107,10 +116,25 @@ def fuse_keyframe_region(clouds, stats, cloud_c, valid, kf_idx, kf_T_cw, anchor,
     clouds = gridops.add_cloud(clouds, cloud_c, valid, kf_idx)
     if not scatter:
         return (clouds,), ()
-    T_cw = kf_T_cw if anchor is None else lie.compose(kf_T_cw, lie.inverse(anchor))
+    T_cw = world_anchored(kf_T_cw, anchor)
     i = kf_idx.reshape(1).long()      # a 1-d index: a 0-d one would read it back
     T_kf = lie.SE3(T_cw.R.index_select(0, i)[0], T_cw.t.index_select(0, i)[0])
     return (clouds, gridops.scatter_cloud_stats(spec, stats, cloud_c, valid, T_kf)), ()
+
+
+def restitch_region(clouds, stats, kf_T_cw, anchor, *, spec: GridSpec2D):
+    """Region ``restitch``: the running per-cell statistics rebuilt from
+    every buffered cloud through its keyframe's current pose, world-anchored
+    (the grid's z axis is world-up, the raw SLAM frame the first camera's
+    optical frame). Writes the statistics."""
+    return (None, gridops.buffer_cell_stats(spec, clouds, world_anchored(kf_T_cw, anchor))), ()
+
+
+#: an owner's re-stitches that run as plain PyTorch before the region is
+#: captured (one follows each loop correction): the calls after which the
+#: measured capture cost equals what the replays save, the largest of three
+#: card runs (PERF.md §6)
+RESTITCH_EAGER_CALLS = 74
 
 
 def fuse_grid_region(stats, occ, *, spec: GridSpec2D, max_slope, ground_clearance,
@@ -256,9 +280,7 @@ class ActiveSlamSystem:
     def kf_poses_world(self):
         """Keyframe camera-from-world poses expressed in the world frame."""
         m = self.slam.map
-        if self.T_anchor is None:
-            return m.kf_T_cw, m.n_kf
-        return lie.compose(m.kf_T_cw, lie.inverse(self.T_anchor)), m.n_kf
+        return world_anchored(m.kf_T_cw, self.T_anchor), m.n_kf
 
     def _slam_pose_world(self, pose_wc_np=None) -> Tuple[np.ndarray, float]:
         """Raw SLAM pose in the world frame (xy, yaw).
@@ -364,7 +386,7 @@ class ActiveSlamSystem:
         tick. With it, the synchronous step runs (one packed read a frame),
         and the map-frame filter fuses the SLAM pose at frame rate."""
         if cloud_c is not None:
-            self._pending_cloud[self.slam.frame_id] = (cloud_c, cloud_valid)
+            self._pending_cloud[self.slam.frame_id] = jit.hold((cloud_c, cloud_valid))
         if self.ekf is None:
             self.slam.process_frame_async(img_left, img_right)
             return {"async": True}
@@ -417,11 +439,13 @@ class ActiveSlamSystem:
         cache their composed grid against its identity."""
         if self._restitch:
             with self.log.scope("traversability.restitch", MODULE):
-                # keyframe poses must be world-anchored: the grid's z axis is
-                # world-up, while the raw SLAM frame is the first camera's
-                # optical frame (y down, z forward)
-                kf_T_cw_world, _ = self.kf_poses_world()
-                self._fstats = gridops.buffer_cell_stats(self.spec, self.clouds, kf_T_cw_world)
+                if self.capture:
+                    self._slot_state.claim()     # the region then reads its buffers
+                name = "restitch" if self.T_anchor is not None else "restitch/unanchored"
+                (_, self._fstats, *_), _ = self._slot_state.run(
+                    name, functools.partial(restitch_region, spec=self.spec), self.clouds,
+                    self._fstats, self.slam.map.kf_T_cw, self.T_anchor,
+                    eager=RESTITCH_EAGER_CALLS)
             self._restitch = False
             self._grid_dirty = True
         if self._grid_dirty:

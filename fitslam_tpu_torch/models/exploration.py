@@ -20,20 +20,28 @@ the published path and one for its line-of-sight mask), each counted in
 ``host_syncs``. Host values go up with ``utils.transfer.upload``, which
 never waits.
 
-A tick's device work up to its packed pull runs as two captured programs
-(``utils/jit.py``; CUDA graphs on a CUDA device), the counterpart of the
-reference's chain of compiled programs: ``overlay`` (the aged lethal overlay
-on the grid) and ``tick`` (roadmap upkeep, frontier search, shortest paths,
-the blacklist mask, the wavefront potential, costs, the TSP, the device
-oracle's FI scalar and the packed scalars). The tick's host values (robot
-pose, previous goal, search radius, blacklist circles, the oracle's query
-pose, RandomCosts' draw) reach it as one staged input. The configuration's
-branches are fixed by the slot's key; the host's (the CleanupRoadmap clock,
-the FI retry ladder's exhaustive rung, a boundary, the wired callbacks) name
-variants of ``tick``. ``roadmap``, ``lethal_overlay`` and ``wedge_age``
-live in the slot's buffers, updated in place; assigning any of them copies
-into the buffer. What follows the pull (the published path, dispatch, the
-FI retry ladder), recovery, bootstrap and blacklist eviction stay eager.
+A tick's device work runs as captured programs (``utils/jit.py``; CUDA
+graphs on a CUDA device), the counterpart of the reference's chain of
+compiled programs: ``overlay`` (the aged lethal overlay on the grid) and
+``tick`` (roadmap upkeep, frontier search, shortest paths, the blacklist
+mask, the wavefront potential, costs, the TSP, the device oracle's FI scalar
+and the packed scalars, the robot's BF row kept for the published path). The
+tick's host values (robot pose, previous goal, search radius, blacklist
+circles, the oracle's query pose, RandomCosts' draw) reach it as one staged
+input. The configuration's branches are fixed by the slot's key; the host's
+(the CleanupRoadmap clock, the FI retry ladder's exhaustive rung, a
+boundary, the wired callbacks) name variants of ``tick``. After the tick's
+pull, its tail: the published path as ``publish`` (the goal's node packed
+with the BF row and the node coordinates, one read), the host's walk of the
+parents, then ``los`` (the line-of-sight mask of the staged waypoints, one
+read); the goal-cell probe of goal monitoring (``goal_cell``) and the
+recovery's free-space probe (``recovery``), each one read; and the rare
+writes, the blacklist eviction (``evict``), the FI wedge mark (``wedge``)
+and the ClearCostmap disc (``clear``). These five recur rarely: each runs
+eagerly for an owner's first ``RARE_EAGER_CALLS`` calls and is captured
+after. ``roadmap``, ``lethal_overlay`` and ``wedge_age`` live in the slot's
+buffers, updated in place; assigning any of them copies into the buffer.
+Dispatch, the FI retry ladder and bootstrap are host logic.
 ``capture=False`` runs the same regions as plain PyTorch.
 """
 
@@ -110,14 +118,15 @@ def overlay_region(occ, lethal_overlay, wedge_age, tick, *, ttl):
     return (), navx.apply_overlay(occ, lethal_overlay | active)
 
 
-def tick_region(occ, roadmap, host, kf_T_cw, n_kf, landmarks, fi_inputs, boundary, *,
+def tick_region(occ, roadmap, host, bf, kf_T_cw, n_kf, landmarks, fi_inputs, boundary, *,
                 spec: GridSpec2D, cfg: FitSlamConfig, reanchor: bool, fi_value):
     """Region ``tick``: the tick's device work from the overlaid grid to the
     packed scalars. ``host`` is the staged host vector ([robot xy, previous
     goal xy, search radius, blacklist circles, the oracle's query pose when
     ``fi_value`` is given, RandomCosts' draw when configured]); ``landmarks``
-    (xy, info, valid) turns path FI on. Writes the roadmap; returns (packed
-    scalars, the robot row's BF parents, its BF source node)."""
+    (xy, info, valid) turns path FI on. Writes the roadmap and ``bf`` (the
+    robot row's BF parents and its BF source node, which ``publish``
+    reads); returns (packed scalars,)."""
     rcfg, fscfg, fcfg = cfg.roadmap, cfg.frontier_search, cfg.fisher_information
     dev = occ.device
     robot = host[0:2]
@@ -199,7 +208,65 @@ def tick_region(occ, roadmap, host, kf_T_cw, n_kf, landmarks, fi_inputs, boundar
     fi = _NO_FI if fi_value is None else fi_value(fi_inputs, host[o:o + 12])
     vals = _pack_tick_scalars(spec, occ, fr.valid, fr.goal_xy, costs.best_heading,
                               has_goal, goal_idx, prev_goal, fi)
-    return (None, roadmap), (vals, parents[0], src_nodes[0])
+    return (None, roadmap, None, (parents[0], src_nodes[0])), (vals,)
+
+
+PATH_WAYPOINTS = 32      # the published path's fixed waypoint capacity
+#: the calls of an owner's rare regions that run as plain PyTorch before the
+#: region is captured: each the calls after which the measured capture cost
+#: (warm-up and capture above two eager calls) equals what the replays save,
+#: the largest of three card runs (PERF.md §6)
+RARE_EAGER_CALLS = {"recovery": 14, "goal_cell": 25, "evict": 61, "wedge": 29, "clear": 62}
+
+
+def publish_region(roadmap, bf, goal):
+    """Region ``publish``: the roadmap node nearest the staged ``goal``,
+    packed as float32 with the robot's BF parent row, its BF source node and
+    the node coordinates ([parents (N), source, goal node, xy (2N)])."""
+    parent, src = bf
+    f32 = torch.float32
+    return (), torch.cat([parent.to(f32), src.to(f32).reshape(1),
+                          rmx.nearest_node(roadmap, goal).to(f32).reshape(1),
+                          roadmap.xy.reshape(-1)])
+
+
+def los_region(occ, host, *, spec: GridSpec2D):
+    """Region ``los``: the line-of-sight keep mask of the staged waypoints
+    (``host``: PATH_WAYPOINTS (x, y) pairs, then their validity as 0 / 1)."""
+    W = PATH_WAYPOINTS
+    return (), rmx.refine_path_los(spec, occ, host[:2 * W].reshape(W, 2), host[2 * W:] > 0.5)
+
+
+def goal_cell_region(occ, goal, *, spec: GridSpec2D):
+    """Region ``goal_cell``: the grid's value at the staged goal, (1,)."""
+    return (), raycast._sample_occ(spec, occ, goal[None, :])
+
+
+def recovery_region(occ, host, *, spec: GridSpec2D, max_dist: float):
+    """Region ``recovery``: the free distance ahead of and behind the robot
+    (``host``: its (x, y), then the two unit directions), (2,)."""
+    return (), raycast.free_distance(spec, occ, host[0:2], host[2:6].reshape(2, 2),
+                                     max_dist=max_dist)
+
+
+def evict_region(lethal_overlay, circles, *, spec: GridSpec2D):
+    """Region ``evict``: the staged evicted circles as discs into the
+    durable overlay. Writes the overlay."""
+    return (navx.mark_lethal_discs(spec, lethal_overlay, circles),), ()
+
+
+def wedge_region(wedge_age, tick, host, *, spec: GridSpec2D, apex_angle_rad: float,
+                 height_m: float):
+    """Region ``wedge``: the FOV wedge at the staged robot pose (``host``:
+    x, y, yaw) stamped with tick ``tick`` (a 0-d int32). Writes the ages."""
+    return (navx.mark_wedge_age(spec, wedge_age, host[0:2], host[2], tick,
+                                apex_angle_rad=apex_angle_rad, height_m=height_m),), ()
+
+
+def clear_region(wedge_age, center, *, spec: GridSpec2D, radius_m: float):
+    """Region ``clear``: aged wedge cells within ``radius_m`` of the staged
+    ``center`` unmarked. Writes the ages."""
+    return (navx.clear_age_disc(spec, wedge_age, center, radius_m),), ()
 
 
 class GoalStatus(Enum):
@@ -308,6 +375,9 @@ class ExplorationServer:
             # recovery rung, unlike the durable overlay
             "wedge_age": torch.full((G, G), -1, dtype=torch.int32, device=self.device),
             "tick": torch.zeros((), dtype=torch.int32, device=self.device),
+            # the last tick's BF parent row of the robot and its source node
+            "bf": (torch.full((rcfg.max_nodes,), -1, dtype=torch.int32, device=self.device),
+                   torch.zeros((), dtype=torch.int32, device=self.device)),
         }, capture, fresh=("lethal_overlay",))
         # with no SLAM the roadmap is anchored to one identity keyframe
         self._identity_kf = (lie.SE3.identity((1,), device=self.device),
@@ -336,8 +406,7 @@ class ExplorationServer:
         self._goal_heading = 0.0
         # published exploration plan (refineAndPublishPath equivalent)
         self.published_path: Optional[np.ndarray] = None
-        self._bf_parent = None
-        self._bf_src = None
+        self._bf_ready = False       # a tick has written the BF row
         self._goal_sent_tick = -1
         self._goal_failures: Dict[Tuple[int, int], int] = {}
         self._last_cleanup = 0.0
@@ -352,6 +421,7 @@ class ExplorationServer:
         copies in).""")
     lethal_overlay = jit.slot_field()
     wedge_age = jit.slot_field()
+    _bf = jit.slot_field("bf")
 
     @property
     def capture_stats(self) -> Dict[str, Dict]:
@@ -445,7 +515,7 @@ class ExplorationServer:
         # roadmap upkeep, frontier search, costs and the TSP up to ONE packed
         # device->host pull of every per-tick control-flow scalar
         with self.log.scope("exploration.tick", MODULE):
-            vals_d, self._bf_parent, self._bf_src = self._tick_device(occ, robot_xy, robot_yaw)
+            (vals_d,) = self._tick_device(occ, robot_xy, robot_yaw)
         vals = self._read(vals_d)
         fi_prefetched = float(vals[7]) if float(vals[7]) > -1e29 else None
 
@@ -520,7 +590,7 @@ class ExplorationServer:
 
     def _tick_device(self, occ, robot_xy, robot_yaw):
         """The tick's host decisions, then region ``tick`` (a variant for
-        each host-chosen branch): (packed scalars, BF parents, BF source)."""
+        each host-chosen branch): its outputs, (packed scalars,)."""
         rcfg, fcfg = self.cfg.roadmap, self.cfg.fisher_information
         # trailing poses keep their heading for the isPathSafe FOV-overlap test
         self.trailing_poses.append(
@@ -555,7 +625,7 @@ class ExplorationServer:
                 and fcfg.min_path_information > 0.0):
             landmarks = tuple(self._on_device(a) for a in self.get_landmarks())
         kf_T_cw, n_kf = self._kf_poses()
-        args = (occ, self.roadmap, upload(np.concatenate(host), self.device), kf_T_cw,
+        args = (occ, self.roadmap, upload(np.concatenate(host), self.device), self._bf, kf_T_cw,
                 self._on_device(n_kf), landmarks, fi_inputs, self.boundary_mask)
         variant = "".join(f"+{flag}" for flag, on in (
             ("reanchor", reanchor), ("fi", fi), ("path_fi", landmarks is not None),
@@ -564,8 +634,15 @@ class ExplorationServer:
         name = f"tick{variant}/{len(jit.flatten(fi_inputs)[0])}"
         fn = functools.partial(tick_region, spec=self.spec, cfg=self.cfg, reanchor=reanchor,
                                fi_value=oracle.value if fi else None)
-        (_, self.roadmap, *_), out = self._slot_state.run(name, fn, *args)
+        (_, self.roadmap, _, self._bf, *_), out = self._slot_state.run(name, fn, *args)
+        self._bf_ready = True
         return out
+
+    def _claim(self) -> None:
+        """With capture, the slot (so that the fields read next are its
+        buffers, which a region then reads in place)."""
+        if self.capture:
+            self._slot_state.claim()
 
     def _kf_poses(self):
         if self.get_kf_poses is not None:
@@ -597,8 +674,7 @@ class ExplorationServer:
                 ebuf = np.zeros((self.BLACKLIST_CAP, 3), np.float32)
                 ebuf[:, :2] = 1e9
                 ebuf[: len(chunk)] = np.stack(chunk)
-                self.lethal_overlay = navx.mark_lethal_discs(
-                    self.spec, self.lethal_overlay, upload(ebuf, self.device))
+                self._evict(ebuf)
         circles = [self._circle3(c) for c in self.blacklist_xy] + peers
         buf = np.zeros((self.BLACKLIST_CAP, 3), np.float32)
         buf[:, :2] = 1e9
@@ -606,6 +682,14 @@ class ExplorationServer:
         if n:
             buf[:n] = np.stack(circles)[-n:]
         return buf
+
+    def _evict(self, ebuf: np.ndarray) -> None:
+        """Region ``evict``: the (BLACKLIST_CAP, 3) circles ``ebuf`` (padding
+        rows at 1e9) as discs into the durable overlay."""
+        self._claim()
+        (self.lethal_overlay, _), _ = self._slot_state.run(
+            "evict", functools.partial(evict_region, spec=self.spec), self.lethal_overlay,
+            upload(ebuf, self.device), eager=RARE_EAGER_CALLS["evict"])
 
     def _circle3(self, xy, radius: Optional[float] = None) -> np.ndarray:
         """Normalize a blacklist entry to (x, y, radius); bare (x, y) entries
@@ -620,19 +704,16 @@ class ExplorationServer:
     def _build_published_path(self, goal_xy, occ, robot_xy) -> Optional[np.ndarray]:
         """The exploration-published plan (refineAndPublishPath): roadmap
         shortest path robot -> goal, LOS-shortcut smoothed. The nav layer's
-        roadmap-planner mode replays this instead of planning its own path."""
-        if self._bf_parent is None:
+        roadmap-planner mode replays this instead of planning its own path.
+        Regions ``publish`` and ``los``, a read each; the walk of the
+        parents between them is the host's, as in the reference."""
+        if not self._bf_ready:
             return None
         # parent row + BF source + goal node + node coordinates in ONE pull
-        goal_node_d = rmx.nearest_node(self.roadmap, self._upload_xy(goal_xy))
+        _, packed = self._slot_state.run("publish", publish_region, self.roadmap, self._bf,
+                                         self._upload_xy(goal_xy))
+        pk = self._read(packed)
         N = self.roadmap.xy.shape[0]
-        f32 = torch.float32
-        pk = self._read(torch.cat([
-            self._bf_parent.to(f32).reshape(-1),
-            self._bf_src.to(f32).reshape(1),
-            goal_node_d.to(f32).reshape(1),
-            self.roadmap.xy.reshape(-1),
-        ]))
         parent_h = pk[:N].astype(np.int64)
         src_h = int(pk[N])
         goal_node = int(pk[N + 1])
@@ -641,15 +722,16 @@ class ExplorationServer:
         pts = [np.asarray(robot_xy, np.float64)]
         pts += [xy[i] for i in nodes]
         pts.append(np.asarray(goal_xy, np.float64))
-        W = 32
+        W = PATH_WAYPOINTS
         pts = np.asarray(pts[:W], np.float32)
         wp = np.zeros((W, 2), np.float32)
         wp[: len(pts)] = pts
         wv = np.zeros((W,), bool)
         wv[: len(pts)] = True
-        keep = self._read(rmx.refine_path_los(
-            self.spec, occ, upload(wp, self.device), upload(wv, self.device)))
-        return wp[keep]
+        _, keep = self._slot_state.run(
+            "los", functools.partial(los_region, spec=self.spec), occ,
+            upload(np.concatenate([wp.reshape(-1), wv.astype(np.float32)]), self.device))
+        return wp[self._read(keep)]
 
     # ------------------------------------------------------------------
     # Fisher-information retry ladder (§3.3)
@@ -736,16 +818,24 @@ class ExplorationServer:
             )
             self.blacklist_xy.append(self._circle3(ahead))
             self.diag.blacklisted += 1
-            # FI wedges are AGED (expire + clearable), not durable
-            self.wedge_age = navx.mark_wedge_age(
-                self.spec, self.wedge_age, self._upload_xy(robot_xy),
-                float(np.float32(robot_yaw)), self.diag.ticks,
-                apex_angle_rad=math.radians(fcfg.lethal_wedge_apex_deg),
-                height_m=fcfg.lethal_wedge_height_m,
-            )
+            self._mark_wedge(robot_xy, robot_yaw)
             self._note_failure_for_clear(robot_xy)
             self._start_recovery()
         return False
+
+    def _mark_wedge(self, robot_xy, robot_yaw) -> None:
+        """Region ``wedge``: the lethal FOV wedge ahead of the robot stamped
+        with this tick. FI wedges are AGED (expire + clearable), not
+        durable."""
+        fcfg = self.cfg.fisher_information
+        tick = self._slot_state.fill("tick", self.diag.ticks)
+        fn = functools.partial(wedge_region, spec=self.spec,
+                               apex_angle_rad=math.radians(fcfg.lethal_wedge_apex_deg),
+                               height_m=fcfg.lethal_wedge_height_m)
+        (self.wedge_age, *_), _ = self._slot_state.run(
+            "wedge", fn, self.wedge_age, tick,
+            self._upload_xy([robot_xy[0], robot_xy[1], robot_yaw]),
+            eager=RARE_EAGER_CALLS["wedge"])
 
     def _overlay(self) -> torch.Tensor:
         """Effective lethal overlay: durable blacklist-eviction cells OR
@@ -762,11 +852,18 @@ class ExplorationServer:
         self._clear_failures += 1
         if self._clear_failures >= bt.clear_costmap_failures:
             self._clear_failures = 0
-            self.wedge_age = navx.clear_age_disc(
-                self.spec, self.wedge_age, self._upload_xy(robot_xy),
-                bt.clear_costmap_radius_m)
+            self._clear_disc(robot_xy)
             logx.warn("ClearCostmap recovery: cleared aged wedges within "
                       f"{bt.clear_costmap_radius_m} m")
+
+    def _clear_disc(self, robot_xy) -> None:
+        """Region ``clear``: aged wedges within the ClearCostmap radius of
+        the robot unmarked."""
+        self._claim()
+        (self.wedge_age, _), _ = self._slot_state.run(
+            "clear", functools.partial(clear_region, spec=self.spec,
+                                       radius_m=self.cfg.exploration_bt.clear_costmap_radius_m),
+            self.wedge_age, self._upload_xy(robot_xy), eager=RARE_EAGER_CALLS["clear"])
 
     def _start_recovery(self):
         self.state = ExplorationState.RECOVERING
@@ -776,17 +873,25 @@ class ExplorationServer:
                    / max(self.cfg.exploration_bt.tick_dt_s, 1e-3))
         )
 
-    def _tick_recovery(self, occ, robot_xy, robot_yaw) -> ExplorationState:
-        """Open-loop recovery move toward the freer direction (E14). Both
-        probe distances come back in one read."""
+    def _free_distances(self, occ, robot_xy, robot_yaw) -> np.ndarray:
+        """Region ``recovery``: the free distance ahead and behind, (2,), in
+        one read."""
         dirs = np.asarray(
             [[math.cos(robot_yaw), math.sin(robot_yaw)],
              [-math.cos(robot_yaw), -math.sin(robot_yaw)]], np.float32
         )
-        free = self._read(raycast.free_distance(
-            self.spec, occ, self._upload_xy(robot_xy), upload(dirs, self.device),
-            max_dist=self.cfg.recovery.probe_distance_m,
-        ))
+        fn = functools.partial(recovery_region, spec=self.spec,
+                               max_dist=self.cfg.recovery.probe_distance_m)
+        _, free = self._slot_state.run(
+            "recovery", fn, occ,
+            upload(np.concatenate([np.asarray(robot_xy, np.float32), dirs.reshape(-1)]),
+                   self.device), eager=RARE_EAGER_CALLS["recovery"])
+        return self._read(free)
+
+    def _tick_recovery(self, occ, robot_xy, robot_yaw) -> ExplorationState:
+        """Open-loop recovery move toward the freer direction (E14). Both
+        probe distances come back in one read."""
+        free = self._free_distances(occ, robot_xy, robot_yaw)
         sign = 1.0 if float(free[0]) >= float(free[1]) else -1.0
         v = sign * self.cfg.recovery.speed
         if hasattr(self.nav, "drive_open_loop"):
@@ -818,8 +923,7 @@ class ExplorationServer:
                     np.asarray(self._goal_xy, np.float64)):
                 cell_occ = goal_cell_occ
             else:
-                cell_occ = int(self._read(raycast._sample_occ(
-                    self.spec, occ, self._upload_xy(goal)[None, :]))[0])
+                cell_occ = self._goal_cell(occ, goal)
             if cell_occ != UNKNOWN:
                 self.diag.replans += 1
                 self.nav.cancel()
@@ -838,6 +942,13 @@ class ExplorationServer:
         self._goal_heading = heading
         self._goal_sent_tick = self.diag.ticks
         self.diag.goals_sent += 1
+
+    def _goal_cell(self, occ, goal) -> int:
+        """Region ``goal_cell``: the grid's value at ``goal``, one read."""
+        _, cell = self._slot_state.run(
+            "goal_cell", functools.partial(goal_cell_region, spec=self.spec), occ,
+            self._upload_xy(goal), eager=RARE_EAGER_CALLS["goal_cell"])
+        return int(self._read(cell)[0])
 
     def _on_goal_failure(self, goal):
         key = (int(goal[0] * 4), int(goal[1] * 4))

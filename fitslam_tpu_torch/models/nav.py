@@ -229,7 +229,7 @@ def mark_wedge_age(
     age_map: torch.Tensor,        # (G, G) int32; -1 = unmarked, else mark tick
     apex_xy: torch.Tensor,
     yaw,
-    tick: int,                    # current tick
+    tick,                         # current tick: an int or a 0-d int32 tensor
     apex_angle_rad: float = 0.7854,
     height_m: float = 3.5,
 ) -> torch.Tensor:
@@ -237,7 +237,9 @@ def mark_wedge_age(
     tick (re-marking refreshes the age). These FI-failure wedges EXPIRE and
     can be cleared by the ClearCostmap recovery rung."""
     inside = _wedge(spec, apex_xy, yaw, apex_angle_rad, height_m)
-    return torch.where(inside, torch.full_like(age_map, int(tick)), age_map)
+    stamp = (tick.to(age_map.dtype) if isinstance(tick, torch.Tensor)
+             else torch.full_like(age_map, int(tick)))
+    return torch.where(inside, stamp, age_map)
 
 
 def clear_age_disc(spec: GridSpec2D, age_map: torch.Tensor,

@@ -3,18 +3,27 @@
 unicycle stepped by (v, omega) commands, a range-limited reveal sensor that
 marks ground-truth occupancy into an explored map, and the rooms world.
 The robot and the world are host numpy, identical to the reference.
+
+``RevealSensor`` runs the reveal as the reference's compiled program
+(``vjit(reveal_sensor)``): region ``reveal`` of its slot (``utils/jit.py``;
+a CUDA graph on a CUDA device), the ground truth and the explored map in
+the slot's buffers and the robot's position staged. ``reveal_sensor``
+stays the plain function.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from fitslam_tpu_torch.ops.grid import LETHAL, UNKNOWN, GridSpec2D
 from fitslam_tpu_torch.ops.raycast import _steps, ray_fan
+from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils.transfer import upload
 
 
 class DiffDriveRobot:
@@ -82,6 +91,55 @@ def reveal_sensor(
     out = torch.cat([out, out.new_zeros(1)])
     out.index_fill_(0, torch.where(r_ok, rc[1] * G + rc[0], n).long().reshape(1), 0)
     return out[:n].reshape(G, G)
+
+
+def reveal_region(gt_occ, explored, robot_xy, *, spec: GridSpec2D, range_m: float,
+                  n_rays: int, n_steps: int):
+    """Region ``reveal``: ``reveal_sensor`` at the staged ``robot_xy``.
+    Writes the explored map."""
+    return (None, reveal_sensor(spec, gt_occ, explored, robot_xy, range_m=range_m,
+                                n_rays=n_rays, n_steps=n_steps)), ()
+
+
+class RevealSensor:
+    """The reveal sensor over one ground truth: ``explored`` is the map it
+    has revealed so far (all UNKNOWN at the start), a new view after each
+    ``reveal`` (the costmaps cache their composed grid against its
+    identity). Rovers that share a map share one sensor. ``capture=False``
+    runs the region as plain PyTorch."""
+
+    def __init__(self, spec: GridSpec2D, gt_occ, device="cuda", range_m: float = 4.0,
+                 n_rays: int = 128, n_steps: int = 24, capture: bool = True):
+        self.spec = spec
+        self.device = torch.device(device)
+        self.capture = capture
+        self._fn = functools.partial(reveal_region, spec=spec, range_m=range_m,
+                                     n_rays=n_rays, n_steps=n_steps)
+        gt = gt_occ if isinstance(gt_occ, torch.Tensor) else upload(gt_occ, self.device)
+        key = ("RevealSensor", spec, range_m, n_rays, n_steps)
+        self._slot_state = jit.SlotState(self, key, self.device, {
+            "gt": gt.to(self.device, torch.uint8),
+            "explored": torch.full((spec.size, spec.size), UNKNOWN, dtype=torch.uint8,
+                                   device=self.device),
+        }, capture, fresh=("explored",))
+
+    explored = jit.slot_field(doc="The explored map; with capture, the slot's buffer.")
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path."""
+        return self._slot_state.stats()
+
+    def reveal(self, robot_xy) -> torch.Tensor:
+        """Reveal from the robot's (x, y) (host values, staged): returns the
+        explored map."""
+        xy = upload(np.asarray(robot_xy, np.float32), self.device)
+        if self.capture:
+            self._slot_state.claim()     # the region then reads its buffers
+        (_, self.explored, _), _ = self._slot_state.run(
+            "reveal", self._fn, self._slot_state["gt"], self.explored, xy)
+        return self.explored
 
 
 def make_rooms_world(spec: GridSpec2D, seed: int = 0) -> np.ndarray:

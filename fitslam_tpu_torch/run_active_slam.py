@@ -180,6 +180,9 @@ def run(args: argparse.Namespace, device="cuda", on_step=None) -> dict:
     world3d = rooms_world(args.seed, device)
     clock = SimClock()
     robot, nav, system = build_system(cfg, device, clock)
+    camera = synthetic.SimCamera(K, world3d, W, H, max_depth=12.0,
+                                 cloud_points=cfg.traversability.max_points_per_cloud,
+                                 cloud_depth=8.0)
     rec = viz.ArtifactRecorder(enabled=bool(args.record) or args.live >= 0)
     live, port = start_live_view(rec, system, robot, args.live) if args.live >= 0 else (None, None)
     if live is not None:
@@ -194,11 +197,7 @@ def run(args: argparse.Namespace, device="cuda", on_step=None) -> dict:
             cam = camera_pose_from_robot(robot.x, robot.y, robot.yaw, device=device)
             if step == 0:
                 system.set_world_anchor(cam)
-            left, right = synthetic.render_stereo(K, world3d, cam, width=W, height=H,
-                                                  max_depth=12.0)
-            cloud, cvalid = synthetic.frustum_cloud(
-                K, world3d, cam, max_points=cfg.traversability.max_points_per_cloud,
-                max_depth=8.0, width=W, height=H)
+            left, right, cloud, cvalid = camera.frame(cam)
             if step == 1:
                 t0 = time.monotonic()
             system.process_frame(left, right, cloud, cvalid)

@@ -64,23 +64,23 @@ def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed:
     (``"tick"``) and each step's controller steps (``"ctrl"``). Returns the
     coverage curve (host numpy, read once at the end), the steps run, the
     rovers, their navs, the coordinator, the explored grid and the loop's
-    wall seconds. ``capture=False`` runs the navs' and the coordinator's
-    captured programs as plain PyTorch."""
+    wall seconds. ``capture=False`` runs the reveal sensor's, the navs' and
+    the coordinator's captured programs as plain PyTorch."""
     device = torch.device(device)
     cfg = fleet_config(allocator)
     timer = timer or (lambda window: nullcontext())
-    gt = upload(sim.make_rooms_world(SPEC, seed=seed), device)
-    state = {"explored": torch.full((SPEC.size, SPEC.size), gr.UNKNOWN, dtype=torch.uint8,
-                                    device=device)}
+    # the rovers share one map: one reveal sensor, revealed from each rover
+    sensor = sim.RevealSensor(SPEC, upload(sim.make_rooms_world(SPEC, seed=seed), device),
+                              device, range_m=3.0, capture=capture)
     robots = [sim.DiffDriveRobot(x=x, y=y, yaw=a, v_max=1.2, w_max=2.5)
               for x, y, a in STARTS[:n_robots]]
-    navs = [SimNavInterface(cfg, SPEC, r, lambda: state["explored"], dt=0.15, device=device,
+    navs = [SimNavInterface(cfg, SPEC, r, lambda: sensor.explored, dt=0.15, device=device,
                             capture=capture)
             for r in robots]
     for n in navs:
         n.controller.max_omega = 2.0
     coord = al.MultiRobotCoordinator(
-        cfg, SPEC, lambda: state["explored"], navs,
+        cfg, SPEC, lambda: sensor.explored, navs,
         get_poses=lambda: [(r.xy, r.yaw) for r in robots], device=device, capture=capture)
 
     if verbose:
@@ -91,9 +91,7 @@ def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed:
     n = 0
     for step in range(steps):
         for r in robots:
-            state["explored"] = sim.reveal_sensor(
-                SPEC, gt, state["explored"], upload(np.asarray(r.xy, np.float32), device),
-                range_m=3.0)
+            sensor.reveal(r.xy)
         if step % TICK_EVERY == 0:
             with timer("tick"):
                 coord.tick()
@@ -101,7 +99,7 @@ def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed:
             for _ in range(NAV_STEPS):
                 for nv in navs:
                     nv.step()
-        coverage[step] = (state["explored"] != gr.UNKNOWN).to(torch.float32).mean()
+        coverage[step] = (sensor.explored != gr.UNKNOWN).to(torch.float32).mean()
         n = step + 1
         if verbose and step % 20 == 0:
             print(f"  step {step:4d} coverage={float(coverage[step]):.3f} done={coord.done}")
@@ -109,7 +107,7 @@ def run(n_robots: int = 2, steps: int = 150, allocator: str = "hungarian", seed:
             break
     cov = coverage[:n].cpu().numpy().astype(np.float64)
     return {"coverage": cov, "robots": robots, "navs": navs, "coord": coord,
-            "explored": state["explored"].cpu().numpy(), "wall_s": time.monotonic() - t0,
+            "explored": sensor.explored.cpu().numpy(), "wall_s": time.monotonic() - t0,
             "steps": n}
 
 

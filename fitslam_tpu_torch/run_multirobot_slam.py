@@ -115,6 +115,10 @@ def run_fleet(n_robots, steps, seed=3, W=320, H=240, verbose=True, device="cuda"
         occ_gt, spec, synthetic.ROOMS_WORLD_SEED, wall_height=2.0,
         points_per_wall_cell=4, floor_points=4000, device=device).landmarks
 
+    # one camera for the fleet: a rover's pending cloud is held by its system
+    camera = synthetic.SimCamera(K, world, W, H, max_depth=12.0,
+                                 cloud_points=cfg.traversability.max_points_per_cloud,
+                                 cloud_depth=8.0, capture=capture)
     fleet, clocks = [], []
 
     def peers_of(i):
@@ -135,11 +139,7 @@ def run_fleet(n_robots, steps, seed=3, W=320, H=240, verbose=True, device="cuda"
             cam = camera_pose_from_robot(robot.x, robot.y, robot.yaw, device=device)
             if step == 0:
                 system.set_world_anchor(cam)
-            left, right = synthetic.render_stereo(K, world, cam, width=W,
-                                                  height=H, max_depth=12.0)
-            cloud, cvalid = synthetic.frustum_cloud(
-                K, world, cam, max_points=cfg.traversability.max_points_per_cloud,
-                max_depth=8.0, width=W, height=H)
+            left, right, cloud, cvalid = camera.frame(cam)
             with timer("frame", i):
                 system.process_frame(left, right, cloud, cvalid)
             if step % TICK_EVERY == TICK_EVERY - 1:

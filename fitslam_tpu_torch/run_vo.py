@@ -9,8 +9,8 @@ Usage:
 
 The corridor world is ``corridor_world(prng_key(42), num=1500, length=30,
 width=5)``, drawn bit for bit as the reference draws it, and the camera
-drives straight down it at 0.17 m a frame. Prints per-frame tracking stats,
-the final ATE against the ground truth (aligned, and unaligned in the SLAM
+(a captured ``SimCamera``) drives straight down it at 0.17 m a frame.
+Prints per-frame tracking stats, the final ATE against the ground truth (aligned, and unaligned in the SLAM
 frame anchored at the first camera), frames/s, the kernels' launches and the
 profiler's table. ``--export-dataset DIR`` writes the rendered frames as
 8-bit PGM pairs (``DIR/left``, ``DIR/right``); ``--dataset DIR`` replays
@@ -115,6 +115,7 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
         if (readers[0].width, readers[0].height) != (W, H):
             raise ValueError("dataset resolution must match --width/--height")
     slam = StereoSlam(cfg, device)
+    camera = None if readers else synthetic.SimCamera(K, world, W, H)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     src = f"dataset {args.dataset} (native prefetch)" if readers else "synthetic"
     print(f"[run_vo] {n_frames} frames @ {W}x{H}, {args.features} features, "
@@ -127,8 +128,7 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
                 left = upload(next(readers[0]), device).float()
                 right = upload(next(readers[1]), device).float()
             else:
-                left, right = synthetic.render_stereo(K, world, lie.SE3(T_gt.R[i], T_gt.t[i]),
-                                                      width=W, height=H)
+                left, right = camera.frame(lie.SE3(T_gt.R[i], T_gt.t[i]))
             if i == 1:
                 t0 = time.monotonic()   # frame 0 builds the map
             info = slam.process_frame(left, right)

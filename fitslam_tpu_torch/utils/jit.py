@@ -181,16 +181,27 @@ def _packed_in(tree, bufs: Dict[int, torch.Tensor]) -> Optional[torch.Tensor]:
     return buf
 
 
-def _reviewed(tree, buf: torch.Tensor, new: torch.Tensor):
+def _reviewed(tree, buf: torch.Tensor, new: torch.Tensor, start: int = 0):
     """The leaves of ``tree`` (views into ``buf``) as the same views into
-    ``new``, a copy of ``buf``."""
+    ``new``, a copy of ``buf`` from its byte ``start`` on."""
     leaves, spec = flatten(tree)
-    base = buf.data_ptr()
+    base = buf.data_ptr() + start
     out = []
     for x in leaves:
         off = x.data_ptr() - base
         out.append(new[off:off + x.numel() * x.element_size()].view(x.dtype).reshape(x.shape))
     return unflatten(spec, out)
+
+
+def _span_copy(tree, buf: torch.Tensor):
+    """The leaves of ``tree`` (views into the packed ``buf``) in one device
+    copy of the bytes that span them, not of the whole buffer (a frame's
+    cloud beside its images)."""
+    leaves, _ = flatten(tree)
+    base = buf.data_ptr()
+    start = min(x.data_ptr() - base for x in leaves) // _ALIGN * _ALIGN
+    end = max(x.data_ptr() - base + x.numel() * x.element_size() for x in leaves)
+    return _reviewed(tree, buf, buf[start:end].clone(), start)
 
 
 def to_host(tree, bufs: Optional[Dict[int, torch.Tensor]] = None):
@@ -394,20 +405,32 @@ class CapturedStep:
             self._capture_synced(args)
 
     def _capture_synced(self, args) -> None:
+        """The capture, after a device synchronisation and with the device's
+        cache emptied (``torch.cuda.graph`` empties it on entry too), so the
+        growth of the reserved memory is the graph's pool. The cyclic garbage
+        collector is paused during it, not run before it: a collection inside
+        a capture that frees a CUDA object (an event, pinned memory)
+        invalidates the capture, and a full collection before each one cost
+        a small region's capture ~100 host ms in a large process."""
         dev = self.slot.device
         self._bind(args)
         static_args = unflatten(self.in_spec, self.static_in)
         torch.cuda.synchronize(dev)
-        gc.collect()
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         g = torch.cuda.CUDAGraph()
-        with record_launches() as launches, \
-                torch.cuda.graph(g, capture_error_mode="thread_local"):
-            self.written, out = _run_region(self.fn, static_args)
-            self.layout = layout_of(out)
-            self.out_buf, self.out = pack(out, self.layout, self.slot.device)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with record_launches() as launches, \
+                    torch.cuda.graph(g, capture_error_mode="thread_local"):
+                self.written, out = _run_region(self.fn, static_args)
+                self.layout = layout_of(out)
+                self.out_buf, self.out = pack(out, self.layout, self.slot.device)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
@@ -469,11 +492,12 @@ class Slot:
 
     def snapshot(self, tree):
         """A copy of ``tree`` that later calls of the regions leave alone:
-        one device copy when a region's packed outputs hold it."""
+        one device copy (of the bytes that span it) when a region's packed
+        outputs hold it."""
         buf = _packed_in(tree, self._packed)
         if buf is None:
             return clone(tree)
-        return _reviewed(tree, buf, buf.clone())
+        return _span_copy(tree, buf)
 
     def to_host(self, tree):
         return to_host(tree, self._packed)
@@ -611,6 +635,20 @@ def release_idle() -> None:
 
 def slots() -> List[Slot]:
     return [s for slots_ in _SLOTS.values() for s in slots_]
+
+
+def hold(tree):
+    """``tree`` kept across later calls of the regions that made it: when
+    one region's packed outputs hold it (a rendered frame's cloud), the
+    copy of ``Slot.snapshot``; any other tree (an eager run's fresh
+    tensors) is returned as it is."""
+    leaves, _ = flatten(tree)
+    if leaves:
+        for slot in slots():
+            buf = _packed_in(tree, slot._packed)
+            if buf is not None:
+                return _span_copy(tree, buf)
+    return tree
 
 
 def run_eagerly(name: str, fn: Callable, *args):
