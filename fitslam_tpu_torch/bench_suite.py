@@ -697,11 +697,17 @@ def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call,
     known cells after each step (an int64 tensor on the device, read by the
     caller once), the server, the nav, the robot, the explored map and the
     reveal sensor. ``capture=False`` runs the sensor's, the server's and the
-    nav's captured programs as plain PyTorch."""
+    nav's captured programs as plain PyTorch.
+
+    The server schedules on the simulation's clock (a ``SimClock``, SIM_DT a
+    step, as ``active_system``'s), not the host's: the roadmap's periodic
+    cleanup then falls on the same steps on every host and in every mode.
+    The reference's loop schedules on the host's clock."""
     from fitslam_tpu_torch.models import sim_robot as sim
     from fitslam_tpu_torch.models.exploration import ExplorationServer
     from fitslam_tpu_torch.models.sim_nav import SimNavInterface
     from fitslam_tpu_torch.ops import grid as gr
+    from fitslam_tpu_torch.utils.profiling import SimClock
 
     dev = torch.device(device)
     sensor = sim.RevealSensor(spec, torch.as_tensor(sim.make_rooms_world(spec, seed=1),
@@ -713,7 +719,7 @@ def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call,
     nav.controller.max_omega = 2.0
     server = ExplorationServer(cfg, spec, lambda: sensor.explored, nav,
                                get_robot_pose=lambda: (robot.xy, robot.yaw), device=dev,
-                               capture=capture)
+                               event_logger=SimClock(), capture=capture)
 
     def controller_steps():
         for _ in range(4):
@@ -726,6 +732,7 @@ def explore_run(cfg, spec, start_xy, n_steps: int, device, window=_call,
             window("tick", step, server.tick)
         window("ctrl", step, controller_steps)
         known[step] = (explored != gr.UNKNOWN).sum()
+        server.log.sim_s += SIM_DT
     return dict(known=known, server=server, nav=nav, robot=robot, explored=sensor.explored,
                 sensor=sensor)
 
@@ -836,10 +843,13 @@ def make_ba_problem(key, n_kf: int = 4, n_lm: int = 256, n_obs: int = 1024,
     return ba.BAProblem(lie.SE3(R0, t0), pts_init, obs, fixed_kf, fixed_lm), T_cw_gt, pts
 
 
-def bench_ba(small: bool, device="cuda"):
+def bench_ba(small: bool, device="cuda", capture: bool = True):
     """Gauss-Newton iterations a second of ``ops/ba.bundle_adjust`` (8
-    iterations a solve, 3 solves timed after one untimed) at the local-window
-    and the global-map sizes of ``make_ba_problem`` (key 7)."""
+    iterations a solve, 3 solves timed after two untimed: the captured
+    solve's warm-up and capture) at the local-window and the global-map
+    sizes of ``make_ba_problem`` (key 7), through ``ba.BundleAdjuster``:
+    one captured program a solve, as the reference compiles one
+    (``capture=False``: plain PyTorch)."""
     from fitslam_tpu_torch.ops import ba
     from fitslam_tpu_torch.utils import prng
 
@@ -849,10 +859,13 @@ def bench_ba(small: bool, device="cuda"):
     extra, iters, reps = {}, 8, 3
     for name, sz in table.items():
         prob, _, _ = make_ba_problem(prng.prng_key(7), **sz, device=dev)
-        _, stats = ba.bundle_adjust(K, prob, iters=iters)
+        solve = ba.BundleAdjuster(dev, sz["n_kf"], sz["n_lm"], sz["n_obs"], iters=iters,
+                                  capture=capture)
+        for _ in range(2):
+            solve(K, prob)
         t0 = clock(dev)
         for _ in range(reps):
-            _, stats = ba.bundle_adjust(K, prob, iters=iters)
+            _, stats = solve(K, prob)
         wall = clock(dev) - t0
         extra[name] = {"iters_per_s": round(reps * iters / wall, 2), **sz,
                        "final_chi2": round(float(stats.chi2[-1]), 2)}
@@ -864,12 +877,15 @@ SCALING_RANKS = (1, 2, 8)
 SCALING_ITERS = 6
 
 
-def scaling_rank(ranks, n_kf, n_lm, n_obs, iters):
+def scaling_rank(ranks, n_kf, n_lm, n_obs, iters, capture=True):
     """On every rank of a launch: for each n of ``ranks``, the landmark-
-    sharded BA on the first n ranks (one untimed solve, then 3 timed, or 1
-    at the largest n), then one solve with ``Mesh.timed`` set for the
-    collectives' count and time. Returns {n: figures} on the meshes' first
-    rank, {} elsewhere."""
+    sharded BA on the first n ranks (two untimed solves: the mesh's regions
+    run eagerly in the first and are captured in the second; then 3 timed,
+    or 1 at the largest n), then one solve with ``Mesh.timed`` set for the
+    collectives' count and time.
+    ``capture=False``: the solver as plain PyTorch. Returns {n: figures, the
+    captured regions' stats among them} on the meshes' first rank, {}
+    elsewhere."""
     from fitslam_tpu_torch.parallel import dist_ba
     from fitslam_tpu_torch.parallel import mesh as mesh_mod
     from fitslam_tpu_torch.utils import prng
@@ -884,21 +900,27 @@ def scaling_rank(ranks, n_kf, n_lm, n_obs, iters):
             prob, _, _ = make_ba_problem(prng.prng_key(7), n_kf, n_lm, n_obs, device=mesh.device)
         reps = 1 if n == max(ranks) else 3
         packed = dist_ba.shard_problem_by_landmark(prob, n)
-        _, chis = dist_ba.landmark_sharded_bundle_adjust(mesh, K, packed, iters=iters)
+        solve = lambda: dist_ba.landmark_sharded_bundle_adjust(mesh, K, packed, iters=iters,
+                                                               capture=capture)
+        for _ in range(2):
+            solve()
         t0 = clock(mesh.device)
         for _ in range(reps):
-            _, chis = dist_ba.landmark_sharded_bundle_adjust(mesh, K, packed, iters=iters)
+            _, chis = solve()
         t = (clock(mesh.device) - t0) / reps
         mesh.timed, mesh.stats = True, {"collectives": 0, "seconds": 0.0}
-        dist_ba.landmark_sharded_bundle_adjust(mesh, K, packed, iters=iters)
+        solve()
         if mesh.rank == 0:
             out[n] = {"t_s": t, "chi2": float(chis[-1]),
                       "collectives_per_iter": mesh.stats["collectives"] / iters,
-                      "collectives_ms_per_iter": mesh.stats["seconds"] / iters * 1e3}
+                      "collectives_ms_per_iter": mesh.stats["seconds"] / iters * 1e3,
+                      "regions": {name: owner.state.stats()
+                                  for name, owner in mesh.solvers.items()}}
     return out
 
 
-def bench_scaling(small: bool, device="cuda", backend: str = "gloo", ranks=SCALING_RANKS):
+def bench_scaling(small: bool, device="cuda", backend: str = "gloo", ranks=SCALING_RANKS,
+                  capture: bool = True):
     """Landmark-sharded BA (``parallel/dist_ba``) over 1, 2 and 8 ranks
     spawned by ``parallel/mesh.launch`` (one launch; the mesh of n is its
     first n ranks; with nccl at most one a card) on the reference's problem (256 / 8192 / 32768; --small
@@ -928,7 +950,7 @@ def bench_scaling(small: bool, device="cuda", backend: str = "gloo", ranks=SCALI
                 "figure")
     share = rank_device.startswith("cuda:") and n_max > 1
     res = mesh_mod.launch(scaling_rank, n_max, tuple(ranks), kf, lm, obs, SCALING_ITERS,
-                          backend=backend, device=rank_device, timeout=1500)[0]
+                          capture, backend=backend, device=rank_device, timeout=1500)[0]
     t1, t2 = res[1]["t_s"], res[2]["t_s"]
     stats = {"t1_s": round(t1, 3), "t2_s": round(t2, 3), "speedup_2dev": round(t1 / t2, 3),
              "efficiency_2dev": round(t1 / t2 / 2, 3),

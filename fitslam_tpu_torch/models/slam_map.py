@@ -516,17 +516,20 @@ def global_ba(m: SlamMap, K: Intrinsics, iters: int = 8):
     return _write_back(m, out), stats
 
 
-def global_ba_dist(m: SlamMap, K: Intrinsics, mesh, iters: int = 8):
+def global_ba_dist(m: SlamMap, K: Intrinsics, mesh, iters: int = 8, capture: bool = True):
     """Global BA with the landmark-sharded solver of ``parallel/dist_ba.py``
     over a mesh of ranks: landmarks, their Hll blocks and the (K, L/n, 6, 3)
     coupling tensor are split over the ranks; only pose-side terms cross
     them. Every rank calls it with the same map. The observations are routed
     to their landmark's owner on the host (GBA runs at loop closure, rarely).
-    Returns (map, chi2 history) on every rank; the write-back mirrors
-    ``global_ba``."""
+    The solver's iterations replay the mesh's captured regions
+    (``capture=False``: plain PyTorch); it is called outside every other
+    region (the loop closer and ``refine_map`` run a mesh's correction
+    eagerly). Returns (map, chi2 history) on every rank; the write-back
+    mirrors ``global_ba``."""
     from fitslam_tpu_torch.parallel import dist_ba
 
     packed = dist_ba.shard_problem_by_landmark(_global_problem(m), mesh.devices.size)
     out, chis = dist_ba.landmark_sharded_bundle_adjust(mesh, K, packed, iters=iters,
-                                                       damping=1e-3)
+                                                       damping=1e-3, capture=capture)
     return _write_back(m, out), chis

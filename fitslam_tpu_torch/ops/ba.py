@@ -14,7 +14,8 @@ singular systems.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ import torch
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics, huber_weight
 from fitslam_tpu_torch.ops.numerics import SegmentPlan, segment_plan, segment_sum_fixed
+from fitslam_tpu_torch.utils import jit
 
 # the reference computes these thresholds as float32 square roots on device
 _SQRT_CHI2_STEREO = float(np.sqrt(np.float32(7.815)))
@@ -181,18 +183,15 @@ def schur_blocks(prob: BAProblem, res, J_pose, J_point, w, plans: SumPlans):
     return Hpp, Hll, bp, bl, Y
 
 
-def reduced_step(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, blocks, damping: float,
-                 reduce=None):
-    """One Gauss-Newton step via Schur complement from the blocks (Hpp, Hll,
-    bp, bl, Y). ``reduce``, where given, sums the Schur complement's two
-    landmark terms over the ranks that hold the other landmarks (the
-    landmark-sharded BA of ``parallel/dist_ba.py``).
-    Returns (delta_pose (K, 6), delta_point (L, 3))."""
-    Hpp, Hll, bp, bl, Y = blocks[:5]
-    K_n = Hpp.shape[0]
-    dev = Hpp.device
-
-    eye3 = torch.eye(3, dtype=Hll.dtype, device=dev)
+def schur_terms(fixed_lm: torch.Tensor, Hll: torch.Tensor, bl: torch.Tensor, Y: torch.Tensor,
+                damping: float):
+    """The landmark side of the Schur complement, the first half of a
+    Gauss-Newton step: the damped landmark inverses ``Hll_inv`` (L, 3, 3)
+    and the two landmark terms S_l = Y Hll^-1 Y^T (K, K, 6, 6) and
+    b_l = Y Hll^-1 bl (K, 6), which the landmark-sharded BA of
+    ``parallel/dist_ba.py`` sums over the ranks that hold the other
+    landmarks. Returns (S_l, b_l, Hll_inv)."""
+    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     diag_l = torch.einsum("lii->l", Hll)[:, None, None] / 3.0
     Hll_d = Hll + (0.05 * diag_l + damping + 1e-6) * eye3
     empty_lm = torch.abs(Hll).sum(dim=(-2, -1)) < 1e-10
@@ -205,8 +204,18 @@ def reduced_step(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, blocks, damping
     YHinv = torch.einsum("klij,ljm->klim", Y, Hll_inv)        # (K, L, 6, 3)
     S_l = torch.einsum("alim,bljm->abij", YHinv, Y)           # (K, K, 6, 6)
     b_l = torch.einsum("klim,lm->ki", YHinv, bl)               # (K, 6)
-    if reduce is not None:
-        S_l, b_l = reduce(S_l), reduce(b_l)
+    return S_l, b_l, Hll_inv
+
+
+def schur_solve(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, Hpp: torch.Tensor,
+                bp: torch.Tensor, bl: torch.Tensor, Y: torch.Tensor, S_l: torch.Tensor,
+                b_l: torch.Tensor, Hll_inv: torch.Tensor, damping: float):
+    """The second half of a Gauss-Newton step: the reduced pose system
+    from the landmark terms of ``schur_terms``, its dense solve and the
+    back-substituted landmark step, each step length clamped.
+    Returns (delta_pose (K, 6), delta_point (L, 3))."""
+    K_n = Hpp.shape[0]
+    dev = Hpp.device
     S = -S_l
     diag = torch.arange(K_n, device=dev)
     S[diag, diag] = S[diag, diag] + Hpp
@@ -225,7 +234,7 @@ def reduced_step(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, blocks, damping
 
     Yt_dp = torch.einsum("klim,ki->lm", Y, dp)               # (L, 3)
     dl = torch.einsum("lij,lj->li", Hll_inv, bl - Yt_dp)
-    dl = dl * lm_free[:, None]
+    dl = dl * torch.logical_not(fixed_lm)[:, None]
     dp = dp * torch.logical_not(fixed_kf)[:, None]
 
     dp_n = torch.linalg.norm(dp, dim=-1, keepdim=True)
@@ -233,6 +242,15 @@ def reduced_step(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, blocks, damping
     dl_n = torch.linalg.norm(dl, dim=-1, keepdim=True)
     dl = dl * torch.clamp(1.0 / torch.clamp(dl_n, min=1e-12), max=1.0)
     return dp, dl
+
+
+def reduced_step(fixed_kf: torch.Tensor, fixed_lm: torch.Tensor, blocks, damping: float):
+    """One Gauss-Newton step via Schur complement from the blocks (Hpp, Hll,
+    bp, bl, Y): ``schur_terms`` then ``schur_solve``.
+    Returns (delta_pose (K, 6), delta_point (L, 3))."""
+    Hpp, Hll, bp, bl, Y = blocks[:5]
+    S_l, b_l, Hll_inv = schur_terms(fixed_lm, Hll, bl, Y, damping)
+    return schur_solve(fixed_kf, fixed_lm, Hpp, bp, bl, Y, S_l, b_l, Hll_inv, damping)
 
 
 def robust_chi2(ok, chi2):
@@ -248,13 +266,16 @@ def _select(accept, a, b):
 
 
 def bundle_adjust(K: Intrinsics, prob: BAProblem, iters: int = 6,
-                  damping: float = 1e-4) -> Tuple[BAProblem, BAStats]:
+                  damping: float = 1e-4, plans: Optional[SumPlans] = None
+                  ) -> Tuple[BAProblem, BAStats]:
     """Gauss-Newton BA with a fixed iteration count; a step is rolled back if
-    it increases the robust chi2."""
+    it increases the robust chi2. ``plans``: the problem's ``sum_plans``,
+    made here where not given."""
     chis, ninl = [], []
     p = prob
     # the observation table is fixed across iterations, so are the sums' orders
-    plans = sum_plans(prob.obs, prob.T_cw.t.shape[0], prob.points.shape[0])
+    if plans is None:
+        plans = sum_plans(prob.obs, prob.T_cw.t.shape[0], prob.points.shape[0])
     for _ in range(iters):
         res, J_pose, J_point, w, ok, chi2 = linearize(K, p)
         w = torch.where(ok, w, torch.zeros_like(w))
@@ -271,6 +292,54 @@ def bundle_adjust(K: Intrinsics, prob: BAProblem, iters: int = 6,
         chis.append(torch.where(accept, c_new, c_old))
         ninl.append(torch.sum(ok_new))
     return p, BAStats(torch.stack(chis), torch.stack(ninl))
+
+
+def ba_solve_region(K: Intrinsics, prob: BAProblem, plans: SumPlans, *, iters: int,
+                    damping: float):
+    """Region ``ba_solve``: the whole fixed-iteration ``bundle_adjust``, as
+    the reference compiles it. Writes nothing; returns (T_cw, points,
+    BAStats)."""
+    p, stats = bundle_adjust(K, prob, iters=iters, damping=damping, plans=plans)
+    return (), (p.T_cw, p.points, stats)
+
+
+class BundleAdjuster:
+    """``bundle_adjust`` on problems of one shape (``n_kf`` keyframes,
+    ``n_lm`` landmarks, ``n_obs`` observations) as one captured program,
+    region ``ba_solve``: eager at its first call, captured at its second,
+    replayed after (``utils/jit.py``); the sum plans are made at each call,
+    outside the region. ``capture=False`` runs the plain function. What a
+    call returns is a copy that later calls leave alone.
+
+    ``bundle_adjust`` itself stays a plain function: the frame step's,
+    the loop closer's and ``refine_map``'s regions call it inside their own
+    captures, and a region never enters another."""
+
+    def __init__(self, device, n_kf: int, n_lm: int, n_obs: int, iters: int = 6,
+                 damping: float = 1e-4, capture: bool = True):
+        self.device = torch.device(device)
+        self.shape = (n_kf, n_lm, n_obs)
+        self._fn = functools.partial(ba_solve_region, iters=iters, damping=damping)
+        self._slot_state = jit.SlotState(
+            self, ("BundleAdjuster", n_kf, n_lm, n_obs, iters, damping), self.device, {},
+            capture)
+
+    @property
+    def capture_stats(self) -> Dict[str, Dict]:
+        """{region: calls, captured, capture seconds, graph pool bytes}; empty
+        on the eager path."""
+        return self._slot_state.stats()
+
+    def __call__(self, K: Intrinsics, prob: BAProblem) -> Tuple[BAProblem, BAStats]:
+        shape = (prob.T_cw.t.shape[0], prob.points.shape[0], prob.obs.valid.shape[0])
+        if shape != self.shape:
+            raise ValueError(f"a BundleAdjuster of {self.shape} (keyframes, landmarks, "
+                             f"observations) given a problem of {shape}")
+        plans = sum_plans(prob.obs, shape[0], shape[1])
+        st = self._slot_state
+        _, out = st.run("ba_solve", self._fn, K, prob, plans)
+        T_cw, points, stats = st.snapshot(out)
+        return prob._replace(T_cw=T_cw, points=points), stats
 
 
 def retriangulate_points(K: Intrinsics, T_cw: lie.SE3, points: torch.Tensor,

@@ -21,6 +21,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -86,6 +87,69 @@ def sharded_arrival_information(
     return both[:, 0], both[:, 1]
 
 
+def _robust_edges(T: lie.SE3, e: pgo_mod.PoseGraphEdges, i, j, valid_f, huber_delta: float):
+    """Each edge's poses, residual, robust weight and squared residual at T."""
+    Ti, Tj = lie.SE3(T.R[i], T.t[i]), lie.SE3(T.R[j], T.t[j])
+    r = pgo_mod.edge_residual(Ti, Tj, e.T_ij)
+    r2 = torch.sum(r * r, dim=-1)
+    w_rob = torch.where(r2 > huber_delta ** 2,
+                        huber_delta / torch.sqrt(torch.clamp(r2, min=1e-12)),
+                        torch.ones_like(r2))
+    return Ti, Tj, r, e.weight * w_rob * valid_f, r2
+
+
+def _pgo_accept(chi2, T_new, T):
+    """T_new where its chi2 (``chi2[1]``) is finite and below T's
+    (``chi2[0]``), else T."""
+    accept = torch.isfinite(chi2[1]) & (chi2[1] < chi2[0])
+    return lie.SE3(torch.where(accept, T_new.R, T.R), torch.where(accept, T_new.t, T.t))
+
+
+def pgo_assemble_region(T, cand_T, chi2, e, i, j, valid_f, h_plan, b_plan, *,
+                        huber_delta: float):
+    """Region ``pgo_assemble``: the previous step accepted or not, then this
+    rank's edges' 6x6 blocks summed in the reference's scatter order, H and
+    b flat for one reduction. Writes T."""
+    K_n = T.t.shape[0]
+    T = _pgo_accept(chi2, cand_T, T)
+    Ti, Tj, r, w, _ = _robust_edges(T, e, i, j, valid_f, huber_delta)
+    Ji, Jj = pgo_mod.edge_jacobians(Ti, Tj, e.T_ij)
+    Hii = torch.einsum("e,eri,erj->eij", w, Ji, Ji)
+    Hjj = torch.einsum("e,eri,erj->eij", w, Jj, Jj)
+    Hij = torch.einsum("e,eri,erj->eij", w, Ji, Jj)
+    bi = -torch.einsum("e,eri,er->ei", w, Ji, r)
+    bj = -torch.einsum("e,eri,er->ei", w, Jj, r)
+    H = segment_sum_fixed(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]), None,
+                          K_n * K_n, h_plan)
+    b = segment_sum_fixed(torch.cat([bi, bj]), None, K_n, b_plan)
+    return (T,), torch.cat([H.reshape(-1), b.reshape(-1)])
+
+
+def pgo_solve_region(T, cand_T, Hb, free, diag, eye6, e, i, j, valid_f, *, damping: float,
+                     huber_delta: float):
+    """Region ``pgo_solve``: the gauge and damping on the summed system, the
+    replicated (6K, 6K) solve, the step clamp, the candidate and the local
+    chi2 of T and of the candidate (one more reduction). Writes the
+    candidate."""
+    K_n = T.t.shape[0]
+    H = Hb[:K_n * K_n * 36].reshape(K_n, K_n, 6, 6)
+    b = Hb[K_n * K_n * 36:].reshape(K_n, 6)
+    H = H * free[:, None, None, None] * free[None, :, None, None]
+    H[diag, diag] = H[diag, diag] + eye6 * torch.where(free > 0, damping, 1.0)[:, None, None]
+    b = b * free[:, None]
+    H_mat = H.permute(0, 2, 1, 3).reshape(K_n * 6, K_n * 6)
+    dx = torch.linalg.solve_ex(H_mat, b.reshape(-1))[0].reshape(K_n, 6)
+    dx = dx * free[:, None]
+    n = torch.linalg.norm(dx, dim=-1, keepdim=True)
+    dx = dx * torch.clamp(1.0 / torch.clamp(n, min=1e-12), max=1.0)
+
+    T_new = lie.compose(lie.se3_exp(dx), T)
+    local = torch.stack([torch.sum(w * r2) for _, _, _, w, r2 in (
+        _robust_edges(T, e, i, j, valid_f, huber_delta),
+        _robust_edges(T_new, e, i, j, valid_f, huber_delta))])
+    return (None, T_new), local
+
+
 def distributed_pose_graph(
     mesh: Mesh,
     T_cw: lie.SE3,                  # (K,) poses, replicated
@@ -96,12 +160,19 @@ def distributed_pose_graph(
     damping: float = 1e-4,
     huber_delta: float = 0.5,
     axis: str = "data",
+    capture: bool = True,
 ) -> Tuple[lie.SE3, torch.Tensor]:
     """Edge-sharded pose-graph Gauss-Newton: each edge's residual and
     Jacobians (``pgo.edge_jacobians``, forward mode in float64) stay on the
     rank owning the edge; the dense (K, K, 6, 6) Hessian and b cross in one
     reduction an iteration and the two chi2 in one more; the (6K, 6K) solve
-    is replicated. Returns (poses, chi2 history) on every rank."""
+    is replicated. Returns (poses, chi2 history) on every rank.
+
+    The device work between the reductions runs as two captured regions,
+    ``pgo_assemble`` and ``pgo_solve``, whose slot lives on the mesh (as the
+    sharded BA's, ``parallel/dist_ba.py``); the first accept is a no-op and
+    the last runs eagerly. ``capture=False`` runs the regions as plain
+    PyTorch."""
     n_dev = mesh.shape[axis]
     E = edges.valid.shape[0]
     assert E % n_dev == 0, f"edge capacity {E} not divisible by mesh axis {n_dev}"
@@ -109,62 +180,37 @@ def distributed_pose_graph(
     dev = T_cw.t.device
     e = data_sharding(mesh, axis)(edges)
     i, j = e.i.long(), e.j.long()
-    valid_f = e.valid.to(torch.float32)
     # this rank's edges are fixed across iterations, so are its sums' orders:
     # the reference's scatters ii, jj, ij, ji, then i, j
     h_ids = torch.cat([i * K_n + i, j * K_n + j, i * K_n + j, j * K_n + i])
-    h_plan = segment_plan(h_ids, K_n * K_n)
-    b_ids = torch.cat([i, j])
-    b_plan = segment_plan(b_ids, K_n)
-    take = lambda T, idx: lie.SE3(T.R[idx], T.t[idx])
-
-    def robust(T):
-        Ti, Tj = take(T, i), take(T, j)
-        r = pgo_mod.edge_residual(Ti, Tj, e.T_ij)
-        r2 = torch.sum(r * r, dim=-1)
-        w_rob = torch.where(r2 > huber_delta ** 2,
-                            huber_delta / torch.sqrt(torch.clamp(r2, min=1e-12)),
-                            torch.ones_like(r2))
-        return Ti, Tj, r, e.weight * w_rob * valid_f, r2
-
-    free = (torch.logical_not(fixed) & kf_valid).to(torch.float32)
-    diag = torch.arange(K_n, device=dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    T = T_cw
-    chis = []
+    st = mesh.solver_state(
+        "distributed_pose_graph", (K_n, E, damping, huber_delta), axis,
+        dict(T=T_cw, cand_T=T_cw, chi2=torch.full((2,), float("inf"), device=dev), edges=e,
+             i=i, j=j, valid_f=e.valid.to(torch.float32), h_plan=segment_plan(h_ids, K_n * K_n),
+             b_plan=segment_plan(torch.cat([i, j]), K_n),
+             free=(torch.logical_not(fixed) & kf_valid).to(torch.float32),
+             diag=torch.arange(K_n, device=dev),
+             eye6=torch.eye(6, dtype=torch.float32, device=dev)), capture)
+    assemble = functools.partial(pgo_assemble_region, huber_delta=huber_delta)
+    solve = functools.partial(pgo_solve_region, damping=damping, huber_delta=huber_delta)
+    edge_args = lambda: (st["edges"], st["i"], st["j"], st["valid_f"])
+    pairs = []
     for _ in range(iters):
-        Ti, Tj, r, w, _ = robust(T)
-        Ji, Jj = pgo_mod.edge_jacobians(Ti, Tj, e.T_ij)
-        Hii = torch.einsum("e,eri,erj->eij", w, Ji, Ji)
-        Hjj = torch.einsum("e,eri,erj->eij", w, Jj, Jj)
-        Hij = torch.einsum("e,eri,erj->eij", w, Ji, Jj)
-        bi = -torch.einsum("e,eri,er->ei", w, Ji, r)
-        bj = -torch.einsum("e,eri,er->ei", w, Jj, r)
-        H = segment_sum_fixed(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]), h_ids,
-                              K_n * K_n, h_plan)
-        b = segment_sum_fixed(torch.cat([bi, bj]), b_ids, K_n, b_plan)
+        (st["T"], *_), Hb = st.run("pgo_assemble", assemble, st["T"], st["cand_T"], st["chi2"],
+                                   *edge_args(), st["h_plan"], st["b_plan"])
         # the one cross-rank reduction of the assembly: edge terms -> global H, b
-        Hb = psum(mesh, torch.cat([H.reshape(-1), b.reshape(-1)]), axis)
-        H = Hb[:K_n * K_n * 36].reshape(K_n, K_n, 6, 6)
-        b = Hb[K_n * K_n * 36:].reshape(K_n, 6)
-
-        H = H * free[:, None, None, None] * free[None, :, None, None]
-        H[diag, diag] = H[diag, diag] + eye6 * torch.where(
-            free > 0, damping, 1.0)[:, None, None]
-        b = b * free[:, None]
-        H_mat = H.permute(0, 2, 1, 3).reshape(K_n * 6, K_n * 6)
-        dx = torch.linalg.solve_ex(H_mat, b.reshape(-1))[0].reshape(K_n, 6)
-        dx = dx * free[:, None]
-        n = torch.linalg.norm(dx, dim=-1, keepdim=True)
-        dx = dx * torch.clamp(1.0 / torch.clamp(n, min=1e-12), max=1.0)
-
-        T_new = lie.compose(lie.se3_exp(dx), T)
-        local = torch.stack([torch.sum(w * r2) for _, _, _, w, r2 in (robust(T), robust(T_new))])
-        c_old, c_new = psum(mesh, local, axis)
-        accept = torch.isfinite(c_new) & (c_new < c_old)
-        T = lie.SE3(torch.where(accept, T_new.R, T.R), torch.where(accept, T_new.t, T.t))
-        chis.append(torch.where(accept, c_new, c_old))
-    return T, torch.stack(chis)
+        Hb = psum(mesh, Hb, axis)
+        args, local = st.run("pgo_solve", solve, st["T"], st["cand_T"], Hb, st["free"],
+                             st["diag"], st["eye6"], *edge_args())
+        st["cand_T"] = args[1]
+        pair = psum(mesh, local, axis)
+        st["chi2"] = pair
+        pairs.append(pair)
+    T = _pgo_accept(st["chi2"], st["cand_T"], st["T"])
+    # each iteration's chi2: the candidate's where accepted, else the current's
+    c_old, c_new = torch.stack(pairs).unbind(-1)
+    accept = torch.isfinite(c_new) & (c_new < c_old)
+    return T, torch.where(accept, c_new, c_old)
 
 
 # ---------------------------------------------------------------------------

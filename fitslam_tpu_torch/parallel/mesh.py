@@ -41,11 +41,13 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from fitslam_tpu_torch.utils import jit
 
 BACKENDS = ("gloo", "nccl")
 
@@ -62,7 +64,9 @@ class Mesh:
     is not a member) and ``device`` the device its tensors live on. ``stats``
     counts the collectives issued; with ``timed`` set, each collective
     synchronises the device before and after it and adds its wall time to
-    ``stats["seconds"]``."""
+    ``stats["seconds"]``. ``solvers`` keeps the captured state of the sharded
+    solvers that ran on this rank (``solver_state``), so their regions are
+    captured once and replayed in later solves while the mesh lives."""
 
     def __init__(self, ranks: Sequence[int], axis_names: Sequence[str], shape: Sequence[int],
                  group, backend: str, device):
@@ -75,10 +79,31 @@ class Mesh:
         self.rank = dist.get_rank(group) if group is not None else -1
         self.timed = False
         self.stats = {"collectives": 0, "seconds": 0.0}
+        self.solvers: Dict[str, "_SolverOwner"] = {}
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def solver_state(self, name: str, key: Tuple, axis: str, state: Dict[str, Any],
+                     capture: bool = True) -> jit.SlotState:
+        """The ``jit.SlotState`` of sharded solver ``name`` on this rank,
+        holding ``state`` (the solve's inputs and the fields its regions
+        chain through). Captured, it is kept on the mesh, one a solver: its
+        slot is keyed by the rank, the mesh's size and ``axis`` and ``key``
+        (the shapes and the host values the regions bake in), and a solve of
+        other shapes replaces it. A solve of the kept key assigns ``state``
+        into its buffers. ``capture=False``: a fresh eager state a solve."""
+        if not capture:
+            return jit.SlotState(self, None, self.device, state, capture=False)
+        key = (name, self.rank, self.size, axis) + tuple(key)
+        owner = self.solvers.get(name)
+        if owner is None or owner.key != key:
+            owner = self.solvers[name] = _SolverOwner(key, self.device, state)
+            return owner.state
+        for field, value in state.items():
+            owner.state[field] = value
+        return owner.state
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
@@ -137,6 +162,15 @@ class Mesh:
         src_global = int(self.devices.reshape(-1)[src])
         self._run(lambda: dist.broadcast(x, src=src_global, group=self.group), x)
         return x
+
+
+class _SolverOwner:
+    """The owner of one sharded solver's slot on a rank (``Mesh.solvers``):
+    the slot turns idle, for the next owner of its key, when this goes."""
+
+    def __init__(self, key: Tuple, device, state: Dict[str, Any]):
+        self.key = key
+        self.state = jit.SlotState(self, key, device, state)
 
 
 def psum(mesh: Mesh, x: torch.Tensor, axis: str = "data") -> torch.Tensor:

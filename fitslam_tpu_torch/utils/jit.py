@@ -26,9 +26,11 @@ one transfer.
 On a CPU tensor the function runs eagerly at every call, but through the
 same static input, state and output buffers, so faults of aliasing show
 there too. On CUDA a capture or replay error raises; nothing falls back to
-eager. Launch counters of the kernel wrappers (``.launches``), bumped in
-Python, move only while a region is captured: the change seen then is added
-again at every replay, so they count as the eager path does.
+eager. A region is never entered from inside another region's function (or
+while the stream is being captured): that raises on either device. Launch
+counters of the kernel wrappers (``.launches``), bumped in Python, move
+only while a region is captured: the change seen then is added again at
+every replay, so they count as the eager path does.
 
 Slots are cached by key (device and the static settings: every argument of
 the configuration that shapes the regions). An owner claims a slot; a slot
@@ -280,6 +282,20 @@ def _setup_sync():
 # ---------------------------------------------------------------------------
 
 
+_RUNNING: List[str] = []      # the regions being called, innermost last
+
+
+def _check_not_nested(name: str, device: torch.device) -> None:
+    """Raise where region ``name`` would run inside another region's
+    function or inside a stream capture: its graph would be captured into
+    the other one, or its replay launched from inside a capture."""
+    if _RUNNING:
+        raise RuntimeError(f"region {name} entered inside region {_RUNNING[-1]}: regions do "
+                           "not nest (run the inner solver with capture=False)")
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"region {name} entered while the stream is being captured")
+
+
 def _run_region(fn, args):
     """``fn(*args)`` with its writes applied to ``args`` in place. Returns
     (positions written, out); an output that aliases an argument is cloned,
@@ -353,6 +369,14 @@ class CapturedStep:
 
     def __call__(self, *args):
         dev = self.slot.device
+        _check_not_nested(self.name, dev)
+        _RUNNING.append(self.name)
+        try:
+            return self._call(dev, args)
+        finally:
+            _RUNNING.pop()
+
+    def _call(self, dev, args):
         if dev.type != "cuda":
             return self._eager_through_buffers(args)
         if self.eager_now():
@@ -589,6 +613,12 @@ class SlotState:
         if not self.capture:
             return run_eagerly(name, fn, *args)
         return self.claim().run(name, fn, *args, eager=eager)
+
+    def snapshot(self, tree):
+        """``Slot.snapshot`` of the claimed slot: a copy that later region
+        calls leave alone. Without a slot (``run_eagerly``'s fresh tensors)
+        the tree itself."""
+        return self.slot.snapshot(tree) if self.slot is not None else tree
 
     def stats(self) -> Dict[str, Dict[str, Any]]:
         """``Slot.stats`` of the claimed slot; empty before or without one."""
