@@ -83,8 +83,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
  13. (seven lines) the multi-robot fleet through the port's entry points:
      ``run_multirobot.run`` (one MultiRobotCoordinator, R wavefronts a
      tick) for tests/test_allocation.py's two-rover runs (hungarian,
-     minpos) and four rovers (hungarian for 150 steps, and the auction
-     through the config for 60), each with coverage, path lengths, host ms, host syncs and K3
+     minpos; 80 of its 120 steps) and four rovers (hungarian, and the
+     auction through the config, 60 steps each), each with coverage, path
+     lengths, host ms, host syncs and K3
      launches a tick, the auction's rounds and syncs a solve, and its first
      10 ticks' cost matrices and assignments equal to the same run's on the
      CPU; the auction alone on 32 (16, 256) problems within R eps of the
@@ -93,7 +94,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
      tests/test_multirobot_slam.py's bounds, and for 3, with each rover's
      host ms, K1 / K2 / K3 launches and host syncs a frame and a tick;
  14. (five lines) the user entry points: ``python -m
-     fitslam_tpu_torch.run_active_slam --frames 110 --checkpoint --record``
+     fitslam_tpu_torch.run_active_slam --frames 60 --checkpoint --record``
      as a subprocess (exit 0, i.e. the example's ATE < 0.5 m; coverage,
      ATE, keyframes, goals, frames/s and the kernels' launches it prints;
      the checkpoint and the four artifacts written); resume in process
@@ -108,7 +109,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
      aligned, < 0.3 m unaligned, the replay's keyframes equal the synthetic
      run's); the three committed worlds drawn again on the host by
      ``utils/prng.py`` equal to their files.
- 15. (four lines) the sharded solvers of fitslam_tpu_torch/parallel/ over
+ 15. (five lines) the sharded solvers of fitslam_tpu_torch/parallel/ over
      ranks spawned on the card (gloo, every rank on card 0): on phase 10's
      seed-1 map, slam_map.global_ba_dist over 2 and 4 ranks against
      global_ba on one (ms an iteration, the collectives' ms in it, peak
@@ -120,10 +121,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
      pool MB; the GBA over 4 ranks captured only);
      phase 8's clouds fused
      point-sharded (counts, z extrema and cost equal to one rank's) and its
-     frontiers raycast frontier-sharded (exact); stage_pipelined_slam at
-     bench width over 20 frames against the sequential path on one rank
-     (poses within 1e-4, keyframes and inliers equal, K1 exactly 2 a frame
-     on rank 0, frames/s of both); two ``python -m
+     frontiers raycast frontier-sharded (exact), each 3 times eager and 3
+     captured (bit-equal; host ms a call, warm-up, capture and replay);
+     stage_pipelined_slam at bench width over 20 frames eager and captured
+     (bit-equal) against the sequential path on one rank, eager and a
+     StereoSlam replaying (poses within 1e-4, keyframes and inliers equal,
+     K1 exactly 2 a frame on rank 0; frames/s of each, host kernel and graph
+     launches a frame on each rank); phase 10's held correction and a
+     3-cycle refine_map on engines whose loop closer has a 2-rank mesh
+     (eager; captured, eager counts 1: bit-equal; host ms of each); two ``python -m
      fitslam_tpu_torch.parallel.multihost`` processes and ``python -m
      fitslam_tpu_torch.parallel.dryrun 2``.
  16. (ten lines) the measurement entry points: ``python -m
@@ -318,8 +324,11 @@ REFERENCE_MARSYARD = {"lethal_precision": 1.0, "violations": 0, "coverage": 0.73
 # phase 13: examples/run_multirobot.py's fleet as (allocator, rovers, steps):
 # tests/test_allocation.py's two-rover runs, then four rovers with the
 # Hungarian and the auction (through the config); the first ticks of each
-# also on the CPU, which must give the same cost matrices and assignments
-FLEET_RUNS = (("hungarian", 2, 120), ("minpos", 2, 120), ("hungarian", 4, 150),
+# also on the CPU, which must give the same cost matrices and assignments.
+# Depth cut to pay for phase 15's captured paths: 80 steps of the two-rover
+# runs' 120 (coverage 0.93 at step 80 on the CPU), 60 of the four-rover
+# Hungarian's 150
+FLEET_RUNS = (("hungarian", 2, 80), ("minpos", 2, 80), ("hungarian", 4, 60),
               ("auction", 4, 60))
 FLEET_PARITY_TICKS = 10
 # the auction alone: (R, F) problems against the Hungarian's optimum
@@ -2374,9 +2383,9 @@ def auction_check(dev, capture=None, regions=None):
 
 def phase_fleet(dev):
     """examples/run_multirobot.py's fleet through the port's entry point:
-    tests/test_allocation.py's two-rover runs (hungarian, minpos; 120 steps)
-    and four rovers for 150 steps (hungarian, and the auction through the
-    config), each beside the same run's first FLEET_PARITY_TICKS ticks on
+    tests/test_allocation.py's two-rover runs (hungarian, minpos; 80 of its
+    120 steps) and four rovers for 60 steps (hungarian, and the auction
+    through the config), each beside the same run's first FLEET_PARITY_TICKS ticks on
     the CPU (cost matrices and assignments equal); then the auction alone.
     Returns the kernels' launches over the card's fleet runs."""
     from fitslam_tpu_torch import run_multirobot as rm
@@ -2526,7 +2535,7 @@ def phase_fleet_slam(dev):
 
 
 ENTRY_DIR = ROOT / "build" / "entry"   # git-ignored: the entry points' files
-ENTRY_ACTIVE_FRAMES = 110              # the example's default
+ENTRY_ACTIVE_FRAMES = 60               # the example's default 110, cut to pay for phase 15
 ENTRY_RESUME = (40, 20)                # frames before the save, frames after it
 ENTRY_LIVE_FRAMES = 6
 ENTRY_VO_BOUNDS = (0.10, 0.3)          # tests/test_slam_e2e.py: aligned, unaligned ATE (m)
@@ -2777,6 +2786,16 @@ def phase_entry(dev):
 PARALLEL_RANKS = (2, 4)        # GBA over 2 ranks, then 4, all sharing card 0 (gloo)
 PARALLEL_OBS_ITERS = 3         # the observation-sharded BA's Y (189 MB) crosses every iteration
 PIPELINE_FRAMES = 20           # bench frames through the stage pipeline after the bootstrap
+PIPELINE_PROFILE_FRAMES = 5    # of them under torch.profiler, a mode (its trace of an eager
+                               # window costs seconds a frame to read)
+STAGE_CALLS = 3                # sharded fusion and raycast calls a mode (captured: warm-up,
+                               # capture, replay)
+MESH_REFINE_CYCLES = 3         # refine_map's cycles after a mesh correction, a pass
+# a mesh correction: (label, capture, corrections an engine), as phase 19's
+# CORRECTION_PASSES, the eager engine's correcting twice (its first pays the
+# rank process's first calls)
+MESH_CORRECTION_PASSES = (("eager", False, 2), ("first captured engine", True, 2),
+                          ("second captured engine", True, 1))
 SHARDED_TOL = 5e-3             # tests/test_dist_ba.py's sharded-versus-single bound (m)
 PGO_TOL = 1e-3                 # tests/test_torch_pgo.py's bound on optimized poses (ROADMAP F5)
 PIPELINE_TOL = 1e-4            # tests/test_stage_pipeline.py's bound on the poses
@@ -2826,8 +2845,6 @@ def _solver_passes(mesh, name, solve, iters, modes=(False, True)):
     timed solve's result must be bit-equal. Returns (a result, {mode: each
     solve's host ms an iteration, launches}, bit-equal, the captured
     regions' stats)."""
-    from fitslam_tpu_torch.utils import jit
-
     dev = mesh.device
     out, results = {}, []
     for capture in modes:
@@ -2850,9 +2867,7 @@ def _solver_passes(mesh, name, solve, iters, modes=(False, True)):
             _sync(dev)
         out["captured" if capture else "eager"] = dict(solves_ms=ms, ms=ms[-1],
                                                        launches=launches)
-    leaves = [jit.flatten(r)[0] for r in results]
-    same = all(len(x) == len(leaves[0]) and all(torch.equal(a, b) for a, b in zip(x, leaves[0]))
-               for x in leaves[1:])
+    same = all(_same_tree(r, results[0]) for r in results[1:])
     return results[-1], out, same, mesh.solvers[name].state.stats()
 
 
@@ -2894,19 +2909,24 @@ def _timed_gba(mesh, m, K, iters, modes):
 def _parallel_rank(n, dev_map, K, iters, rest):
     """One rank of phase 15. Every launch: GBA landmark-sharded over the
     ranks, captured (and eager with ``rest``). With ``rest`` (2 ranks): the
-    observation-sharded BA and edge-sharded PGO, eager and captured,
-    point-sharded fusion, frontier-sharded raycast and the stage pipeline at
-    bench width, with this rank's K1 / K2 launches in it."""
+    observation-sharded BA and edge-sharded PGO, point-sharded fusion,
+    frontier-sharded raycast, the stage pipeline at bench width (with this
+    rank's K1 / K2 launches and host launches a frame) and the held loop
+    correction and refine_map on an engine with the mesh, each eager and
+    captured."""
     from fitslam_tpu_torch.ops import ba
     from fitslam_tpu_torch.parallel import dist_ba, dist_stages as ds, mesh as mesh_mod
 
     mesh = mesh_mod.make_mesh(n)
     dev = mesh.device
     m, K = _tree_to(dev_map, dev), _tree_to(K, dev)
+    t0 = time.monotonic()
     out = dict(rank=mesh.rank,
                gba=_timed_gba(mesh, m, K, iters, (True,) if rest is None else (False, True)))
     if rest is None:
         return out
+    secs = out["seconds"] = {"gba": time.monotonic() - t0}
+    t0 = time.monotonic()
     # observation-sharded BA on the map's whole problem
     prob = ba.BAProblem(m.kf_T_cw, m.lm_pos, ba.Observations(m.obs_kf, m.obs_lm, m.obs_uvr,
                                                              m.obs_sigma2, m.obs_valid),
@@ -2923,17 +2943,27 @@ def _parallel_rank(n, dev_map, K, iters, rest):
     out["obs"] = dict(T=ob.T_cw, points=ob.points, chis=ob_chis, modes=modes, same=same,
                       regions=regions,
                       allreduce_ms_iter=(mesh.stats["seconds"] - s0) / PARALLEL_OBS_ITERS * 1e3)
+    secs["obs"], t0 = time.monotonic() - t0, time.monotonic()
     T0, kf_valid, edges, fixed, pgo_iters = _tree_to(rest["pgo"], dev)
     pgo_out, modes, same, regions = _solver_passes(
         mesh, "distributed_pose_graph",
         lambda c: ds.distributed_pose_graph(mesh, T0, kf_valid, edges, fixed, iters=pgo_iters,
                                             capture=c), pgo_iters)
     out["pgo"] = dict(result=pgo_out, modes=modes, same=same, regions=regions)
+    secs["pgo"], t0 = time.monotonic() - t0, time.monotonic()
     spec, pts_w, ok, kw = rest["fusion"]
-    out["grid"] = ds.sharded_fuse_clouds(mesh, spec, pts_w.to(dev), ok.to(dev), **kw)
-    spec, occ, fxy, f_valid = rest["raycast"]
-    out["ray"] = ds.sharded_arrival_information(mesh, spec, occ.to(dev), fxy.to(dev),
-                                                f_valid.to(dev))
+    pts_w, ok = pts_w.to(dev), ok.to(dev)
+    spec_r, occ, fxy, f_valid = rest["raycast"]
+    occ, fxy, f_valid = occ.to(dev), fxy.to(dev), f_valid.to(dev)
+    out["stages"] = {
+        what: _stage_calls(mesh, name, call) for what, name, call in (
+            ("fusion", "sharded_fuse_clouds",
+             lambda c: ds.sharded_fuse_clouds(mesh, spec, pts_w, ok, **kw, capture=c)),
+            ("raycast", "sharded_arrival_information",
+             lambda c: ds.sharded_arrival_information(mesh, spec_r, occ, fxy, f_valid,
+                                                      capture=c)))}
+    out["grid"], out["ray"] = (out["stages"][k].pop("result") for k in ("fusion", "raycast"))
+    secs["stages"], t0 = time.monotonic() - t0, time.monotonic()
     # the stage pipeline: frames 1..PIPELINE_FRAMES after the bootstrap frame
     cfg, backend_kw = rest["pipeline"]
     stage = mesh_mod.make_mesh(2, axis_names=("stage",))
@@ -2942,34 +2972,134 @@ def _parallel_rank(n, dev_map, K, iters, rest):
     stream = torch.stack([torch.stack(f) for f in frames[1:]])
     o = cfg.orb
 
-    def pipeline(frames):
+    def pipeline(capture, frames=stream):
         return ds.stage_pipelined_slam(
             stage, Kp, m0, st0, frames, num_features=o.num_features, num_levels=o.num_levels,
             scale_factor=o.scale_factor, fast_threshold=o.fast_threshold,
-            backend_kwargs=backend_kw)
+            backend_kwargs=backend_kw, capture=capture)
 
-    pipeline(stream[:4])    # first calls
-    _sync(dev)
-    _reset_counts()
-    t0 = time.perf_counter()
-    m_p, st_p, outs = pipeline(stream)
-    _sync(dev)
-    out["pipeline"] = dict(outs=outs, n_kf=int(m_p.n_kf), T_cw_t=st_p.T_cw.t,
-                           fps=PIPELINE_FRAMES / (time.perf_counter() - t0), launches=_counts())
+    modes = {}
+    for capture in (False, True):
+        # first calls: the kernels' modules; captured, every region's capture
+        # (the keyframe regions' at the second keyframe)
+        pipeline(capture, stream if capture else stream[:4])
+        _sync(dev)
+        _reset_counts()
+        t1 = time.perf_counter()
+        res = pipeline(capture)
+        _sync(dev)
+        fps = PIPELINE_FRAMES / (time.perf_counter() - t1)
+        launches = _counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pipeline(capture, stream[:PIPELINE_PROFILE_FRAMES])
+            _sync(dev)
+        host_k, host_g = _host_launches(prof)
+        modes["captured" if capture else "eager"] = dict(
+            result=res, fps=fps, launches=launches,
+            host=(host_k / PIPELINE_PROFILE_FRAMES, host_g / PIPELINE_PROFILE_FRAMES))
+    m_p, st_p, outs = modes["captured"]["result"]
+    out["pipeline"] = dict(
+        outs=outs, n_kf=int(m_p.n_kf), T_cw_t=st_p.T_cw.t,
+        same=_same_tree(modes["eager"].pop("result"), modes["captured"].pop("result")),
+        modes=modes, launches=modes["captured"]["launches"],
+        regions=stage.solvers["stage_pipelined_slam"].state.stats())
+    secs["pipeline"], t0 = time.monotonic() - t0, time.monotonic()
+    out["correction"] = _mesh_corrections(mesh, _tree_to(rest["correction"], dev))
+    secs["correction"] = time.monotonic() - t0
     return out
 
 
+def _same_tree(a, b) -> bool:
+    from fitslam_tpu_torch.utils import jit
+
+    la, lb = jit.flatten(a)[0], jit.flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _stage_calls(mesh, name, call):
+    """``call(capture)`` STAGE_CALLS times a mode, eager then captured (warm-up,
+    capture, replay), the host's ms of each, the device synchronised around
+    each: {result (the first captured call's), ms a mode, every result
+    bit-equal, the regions' stats}."""
+    results, ms = [], {}
+    for capture in (False, True):
+        ms["captured" if capture else "eager"] = []
+        for _ in range(STAGE_CALLS):
+            _sync(mesh.device)
+            t0 = time.perf_counter()
+            results.append(call(capture))
+            _sync(mesh.device)
+            ms["captured" if capture else "eager"].append((time.perf_counter() - t0) * 1e3)
+    return dict(result=results[STAGE_CALLS], ms=ms,
+                same=all(_same_tree(r, results[0]) for r in results[1:]),
+                regions=mesh.solvers[name].state.stats())
+
+
+def _mesh_corrections(mesh, held):
+    """Phase 10's first correction of seed 1 on an engine whose loop closer
+    has ``mesh`` (its GBA landmark-sharded over the ranks), then
+    refine_map(cycles=MESH_REFINE_CYCLES), a fresh engine a pass of
+    MESH_CORRECTION_PASSES (eager counts 1: the first captured engine's
+    first correction eager in its slot, its second captured; the second
+    engine replaying). Host ms of each, and whether each pass left the
+    eager pass's map, tracker state, record and refine chi2."""
+    from fitslam_tpu_torch.models import loop_closing
+    from fitslam_tpu_torch.models import slam as slam_mod
+    from fitslam_tpu_torch.models.slam import StereoSlam
+    from fitslam_tpu_torch.utils import jit
+
+    saved = loop_closing.EAGER_CALLS, slam_mod.REFINE_EAGER_CYCLES
+    loop_closing.EAGER_CALLS = slam_mod.REFINE_EAGER_CYCLES = 1
+    passes, want = [], None
+    try:
+        for label, capture, n_calls in MESH_CORRECTION_PASSES:
+            slam = StereoSlam(held["cfg"], mesh.device, capture=capture)
+            slam.loop_closer.mesh = mesh
+            if capture:
+                slam._slot_state.claim()         # the slot's set-up is not a correction's
+            correct_ms = []
+            for _ in range(n_calls):
+                _restore(slam, held)
+                _sync(mesh.device)
+                t0 = time.perf_counter()
+                info = slam.loop_closer.on_keyframe(slam, *held["args"])
+                _sync(mesh.device)
+                correct_ms.append((time.perf_counter() - t0) * 1e3)
+                if info is None:
+                    raise AssertionError("[15 parallel] the held correction did not close its "
+                                         "loop on the mesh")
+            t0 = time.perf_counter()
+            chi2 = slam.refine_map(cycles=MESH_REFINE_CYCLES, gba_iters=15)
+            _sync(mesh.device)
+            refine_ms = (time.perf_counter() - t0) * 1e3
+            got = (jit.clone(slam.map), jit.clone(slam.state), chi2.clone(),
+                   [v for v in info.values() if isinstance(v, torch.Tensor)])
+            want = want or got
+            passes.append(dict(label=label, correct_ms=correct_ms, refine_ms=refine_ms,
+                               same=_same_tree(got, want), stats=slam.capture_stats,
+                               gba_chi2=float(info["gba_chi2"]), chi2=float(chi2)))
+            del slam, info, chi2
+    finally:
+        loop_closing.EAGER_CALLS, slam_mod.REFINE_EAGER_CYCLES = saved
+    return dict(passes=passes, kf_t=want[0].kf_T_cw.t, lm_pos=want[0].lm_pos)
+
+
 def _sequential_pipeline(dev, cfg, backend_kw):
-    """The port's sequential path on one rank over the pipeline's frames:
-    (poses, keyframe flags, inliers, frames/s)."""
+    """The port's sequential path on one rank over the pipeline's frames,
+    eager (the frontend and ``_backend_body`` frame after frame) and captured
+    (a StereoSlam replaying: ``process_frame_async`` from the bootstrap,
+    once to capture, then timed on a fresh engine of its slot): {mode:
+    (poses, keyframe flags, inliers, frames/s)}."""
     from fitslam_tpu_torch.models import tracking as tr
+    from fitslam_tpu_torch.models.slam import StereoSlam
     from fitslam_tpu_torch.models.slam_step import _backend_body
 
     frames, _ = headline_frames(cfg, dev, PIPELINE_FRAMES + 1)
     K, m0, st0 = _pipeline_start(dev, cfg, frames)
     o = cfg.orb
 
-    def run(frames):
+    def eager(frames):
         m, st, initialized, outs = m0, st0, True, []
         for t, (l, r) in enumerate(frames):
             f = tr.process_stereo(K, l, r, num_features=o.num_features, num_levels=o.num_levels,
@@ -2980,14 +3110,24 @@ def _sequential_pipeline(dev, cfg, backend_kw):
             outs.append(out)
         return outs
 
-    run(frames[1:5])    # first calls, as the pipeline's
-    _sync(dev)
-    t0 = time.perf_counter()
-    outs = run(frames[1:])
-    _sync(dev)
-    fps = PIPELINE_FRAMES / (time.perf_counter() - t0)
-    return (torch.stack([o_.pose_wc for o_ in outs]).cpu(),
-            [bool(o_.was_keyframe) for o_ in outs], [int(o_.n_inliers) for o_ in outs], fps)
+    def captured(frames):
+        slam = StereoSlam(cfg, dev)
+        slam.map, slam.state = m0, st0
+        slam._track_initialized = slam._initialized = True
+        return [slam.process_frame_async(l, r) for l, r in frames]
+
+    out = {}
+    for mode, run in (("eager", eager), ("captured", captured)):
+        run(frames[1:])         # first calls; the captured engine's regions captured
+        _sync(dev)
+        t0 = time.perf_counter()
+        outs = run(frames[1:])
+        _sync(dev)
+        fps = PIPELINE_FRAMES / (time.perf_counter() - t0)
+        out[mode] = (torch.stack([o_.pose_wc for o_ in outs]).cpu(),
+                     [bool(o_.was_keyframe) for o_ in outs], [int(o_.n_inliers) for o_ in outs],
+                     fps)
+    return out
 
 
 def _free_port() -> int:
@@ -3042,9 +3182,12 @@ def phase_parallel(dev, loop_run, active_run):
     loop edges against optimize_pose_graph, each eager and captured
     (``_solver_passes``); phase 8's clouds fused
     point-sharded and its frontiers raycast frontier-sharded against the
-    single-rank functions; the stage pipeline at bench width over 20 frames
-    against the sequential path; then two multihost processes and the
-    2-rank dry run. Returns the K1 / K2 launches of the pipeline's ranks."""
+    single-rank functions, each STAGE_CALLS times eager and captured; the
+    stage pipeline at bench width over 20 frames eager and captured against
+    the sequential path (eager, and a StereoSlam replaying); phase 10's held
+    correction and a refine_map on engines whose loop closer has the 2-rank
+    mesh, eager and captured; then two multihost processes and the 2-rank
+    dry run. Returns the K1 / K2 launches of the captured pipeline's ranks."""
     from fitslam_tpu_torch.models import slam_map as sm
     from fitslam_tpu_torch.models.slam import StereoSlam
     from fitslam_tpu_torch.ops import ba, lie, pgo, raycast
@@ -3125,11 +3268,14 @@ def phase_parallel(dev, loop_run, active_run):
 
     cfg = bench_config()
     backend_kw = StereoSlam(cfg, dev).backend_kwargs()
-    seq_poses, seq_kf, seq_inl, seq_fps = _sequential_pipeline(dev, cfg, backend_kw)
+    seq = _sequential_pipeline(dev, cfg, backend_kw)
+    held = loop_run["held"]
     rest = dict(pgo=_tree_to((T0, m.kf_valid, edges, fixed, lcfg.pgo_iters), cpu),
                 fusion=(spec, pts_w.cpu(), ok.cpu(), kw),
                 raycast=(spec, occ.cpu(), fr.goal_xy.cpu(), fr.valid.cpu()),
-                pipeline=(cfg, backend_kw))
+                pipeline=(cfg, backend_kw),
+                correction=_tree_to({k: held[k] for k in ("map", "state", "frame", "closer",
+                                                          "args", "cfg")}, cpu))
     runs = {}
     for n in PARALLEL_RANKS:
         t0 = time.monotonic()
@@ -3201,19 +3347,49 @@ def phase_parallel(dev, loop_run, active_run):
     ray_exact = all(torch.equal(a, b.cpu()) for a, b in zip(r0["ray"], ray_single))
     if not ray_exact:
         fails.append("sharded raycast differs from the single rank's")
+    for what in ("fusion", "raycast"):
+        for r in two:
+            st = r["stages"][what]
+            if not (st["same"] and all(v["calls"] == STAGE_CALLS
+                                       and v["captured"] for v in st["regions"].values())):
+                fails.append(f"sharded {what} on rank {r['rank']}: captured equal to eager "
+                             f"{st['same']}, regions {st['regions']}")
     p0, p1 = (r["pipeline"] for r in two)
     outs = p1["outs"]
-    d_pose = float((outs.pose_wc - seq_poses).abs().max())
-    if d_pose > PIPELINE_TOL or outs.was_keyframe.tolist() != seq_kf \
-            or outs.n_inliers.tolist() != seq_inl:
-        fails.append(f"stage pipeline differs from the sequential path: poses {d_pose}, "
-                     f"keyframes {outs.was_keyframe.tolist()} vs {seq_kf}, inliers "
-                     f"{outs.n_inliers.tolist()} vs {seq_inl}")
+    d_pose, seq_same = {}, {}
+    for mode, (poses, kfs, inl, _) in seq.items():
+        d_pose[mode] = float((outs.pose_wc - poses).abs().max())
+        seq_same[mode] = outs.was_keyframe.tolist() == kfs and outs.n_inliers.tolist() == inl
+        if d_pose[mode] > PIPELINE_TOL or not seq_same[mode]:
+            fails.append(f"stage pipeline differs from the {mode} sequential path: poses "
+                         f"{d_pose[mode]}, keyframes {outs.was_keyframe.tolist()} vs {kfs}, "
+                         f"inliers {outs.n_inliers.tolist()} vs {inl}")
+    if not all(r["pipeline"]["same"] for r in two):
+        fails.append("stage pipeline: captured not bit-equal to capture=False")
     stage_counts = {k: p0["launches"][k] + p1["launches"][k] for k in p0["launches"]}
     if p0["launches"]["describe"] != 2 * PIPELINE_FRAMES or p1["launches"]["describe"] \
-            or stage_counts["top2"] <= 0:
-        fails.append(f"stage pipeline launches: rank 0 {p0['launches']}, rank 1 "
-                     f"{p1['launches']}")
+            or stage_counts["top2"] <= 0 \
+            or any(p["modes"]["eager"]["launches"] != p["launches"] for p in (p0, p1)):
+        fails.append(f"stage pipeline launches (eager, captured): rank 0 "
+                     f"{p0['modes']['eager']['launches']}, {p0['launches']}, rank 1 "
+                     f"{p1['modes']['eager']['launches']}, {p1['launches']}")
+    if not all(r["pipeline"]["regions"] and all(v["captured"] for v in r["pipeline"]["regions"]
+                                                .values() if v["calls"] >= 2) for r in two):
+        fails.append("stage pipeline regions not captured: "
+                     f"{[r['pipeline']['regions'] for r in two]}")
+    cor = [r["correction"] for r in two]
+    if not all(p["same"] for c in cor for p in c["passes"]):
+        fails.append("mesh correction / refine_map: a captured engine differs from the eager one")
+    if not (torch.equal(cor[0]["kf_t"], cor[1]["kf_t"])
+            and torch.equal(cor[0]["lm_pos"], cor[1]["lm_pos"])):
+        fails.append("mesh correction: the ranks' maps differ")
+    last = cor[0]["passes"][-1]["stats"]
+    mesh_regions = {k: v for k, v in last.items()
+                    if k.startswith(("loop_correct", "loop_rebase", "refine"))}
+    if not (any(k.startswith("loop_correct") and "+gba_dist" in k for k in mesh_regions)
+            and "loop_rebase" in mesh_regions
+            and all(v["captured"] for v in mesh_regions.values())):
+        fails.append(f"mesh correction regions: {mesh_regions}")
     mh, dry_line, entry_s = _parallel_entry_points(dev)
     if not (all(r["n_devices"] == 2 and r["chi2_last"] < 0.2 * r["chi2_first"] for r in mh)
             and mh[0]["chi2_last"] == mh[1]["chi2_last"]):
@@ -3233,14 +3409,47 @@ def phase_parallel(dev, loop_run, active_run):
         f"{float(chis_pgo[-1]):.3e}; fusion of phase 8's {pts_w.shape[0]} cloud points: "
         f"counts, z extrema and cost equal to one rank's {fusion_exact}; raycast of "
         f"{fr.goal_xy.shape[0]} frontiers ({int(fr.valid.sum())} valid) exact {ray_exact}")
+    pm = {mode: (p0["modes"][mode], p1["modes"][mode]) for mode in ("eager", "captured")}
+    host = lambda mode, r: "{:.1f} kernels + {:.1f} graphs".format(*pm[mode][r]["host"])
     log(f"[15 parallel] stage pipeline at bench width ({PIPELINE_FRAMES} frames, frontend on "
-        f"rank 0, backend on rank 1, both on {dev}): {p0['fps']:.2f} frames/s against "
-        f"{seq_fps:.2f} sequential on one rank; max |d pose| {d_pose:.1e}, keyframes "
-        f"{sum(seq_kf)} and inliers equal {outs.was_keyframe.tolist() == seq_kf and outs.n_inliers.tolist() == seq_inl}; "
-        f"launches rank 0 {p0['launches']}, rank 1 {p1['launches']}; multihost (2 "
-        f"processes, gloo on {dev}): chi2 {mh[0]['chi2_first']:.1f} -> "
+        f"rank 0, backend on rank 1, both on {dev}), frames/s: eager {pm['eager'][0]['fps']:.2f}, "
+        f"captured {pm['captured'][0]['fps']:.2f}, bit-equal "
+        f"{all(r['pipeline']['same'] for r in two)}; "
+        f"sequential on one rank: eager {seq['eager'][3]:.2f}, captured (a StereoSlam "
+        f"replaying) {seq['captured'][3]:.2f}; max |d pose| to them "
+        f"{d_pose['eager']:.1e} / {d_pose['captured']:.1e}, keyframes "
+        f"{int(outs.was_keyframe.sum())} "
+        f"and inliers equal {seq_same['eager']} / {seq_same['captured']}; host launches a frame "
+        f"(torch.profiler, frames 1-{PIPELINE_PROFILE_FRAMES}), eager: rank 0 "
+        f"{host('eager', 0)}, rank 1 {host('eager', 1)}; "
+        f"captured: rank 0 {host('captured', 0)}, rank 1 {host('captured', 1)}; K1 / K2 "
+        f"launches rank 0 {p0['launches']}, rank 1 {p1['launches']} (eager the same); regions "
+        f"(calls, capture s, pool MB): "
+        + ", ".join(f"{k} {v['calls']} {_pool(v)}" for r in two
+                    for k, v in r["pipeline"]["regions"].items())
+        + f"; multihost (2 processes, gloo on {dev}): chi2 {mh[0]['chi2_first']:.1f} -> "
         f"{mh[0]['chi2_last']:.4f}, {mh[0]['ba_iters_per_s']:.1f} iterations/s; {dry_line}; "
         f"entry points {entry_s:.1f} s")
+    ms = lambda xs: " / ".join(f"{x:.2f}" for x in xs)
+    stage_line = "; ".join(
+        f"{what}: host ms a call eager {ms(r0['stages'][what]['ms']['eager'])}, captured "
+        f"(warm-up / capture / replay) {ms(r0['stages'][what]['ms']['captured'])}, bit-equal "
+        f"{all(r['stages'][what]['same'] for r in two)}; regions "
+        + ", ".join(f"{k} {v['calls']} calls {_pool(v)}"
+                    for k, v in r0["stages"][what]["regions"].items())
+        for what in ("fusion", "raycast"))
+    cor_line = "; ".join(
+        f"{p['label']}: correction {ms(p['correct_ms'])}, refine {p['refine_ms']:.2f}, "
+        f"bit-equal to eager {p['same']}" for p in cor[0]["passes"])
+    log(f"[15 parallel] captured sharded stages over 2 ranks on {dev} (gloo), called "
+        f"{STAGE_CALLS} times a mode: {stage_line}. Phase 10's first correction of seed 1 and "
+        f"refine_map({MESH_REFINE_CYCLES} cycles) on an engine whose loop closer has the 2-rank "
+        f"mesh (GBA chi2 {cor[0]['passes'][0]['gba_chi2']:.4f}, refine chi2 "
+        f"{cor[0]['passes'][0]['chi2']:.4f}; eager counts 1), host ms on rank 0: {cor_line}; "
+        f"the ranks' maps equal; regions (capture s, pool): "
+        + ", ".join(f"{k} {_pool(v)}" for k, v in mesh_regions.items())
+        + "; the 2-rank launch's seconds on rank 0: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in r0["seconds"].items()))
     log("[15 parallel] captured solvers (eager against captured over 2 ranks), every rank on "
         f"{dev} over gloo: " + "; ".join(solver_lines)
         + f"; phase {time.monotonic() - t_phase:.1f} s")

@@ -29,8 +29,11 @@ loop-edge table's indices and weights) are one staged input. The map and
 the tracker state are written in the engine's buffers in place. A region
 of these is captured only at an engine's ``EAGER_CALLS + 1``-th call of it;
 the calls before run as plain PyTorch through the same buffers. With a mesh
-of more than one rank the correction runs eagerly (its GBA's collectives
-are not captured).
+of more than one rank the correction's GBA runs landmark-sharded over it
+(``slam_map.global_ba_dist``, with its own captured solver regions) between
+two regions of the engine: ``loop_correct[+merge][+fuse]+gba_dist[+scale|
++retri]`` (the correction up to the GBA) and ``loop_rebase`` (the tracker's
+re-base after it).
 """
 
 from __future__ import annotations
@@ -190,18 +193,13 @@ def loop_verify_region(K: Intrinsics, m: sm.SlamMap, frame: tr.StereoFrame, ij: 
 _HEAD = 7
 
 
-def loop_correct_region(K: Intrinsics, m: sm.SlamMap, state: tr.TrackState, T_loop: lie.SE3,
-                        table: lie.SE3, host: torch.Tensor, *, cfg, merge: bool, gba: bool,
-                        mesh=None):
-    """Region ``loop_correct[...]``: the correction of the verified loop
-    between candidate keyframe i and keyframe j (``T_loop``: keyframe j's
-    camera pose the loop implies). ``table`` is the loop-edge table's
-    measured poses (``cfg.max_loop_edges`` rows, identity where unused);
-    ``host`` is float32 [i, j, the merged maps' ids (the older, kept; the
-    newer, welded into it), the new edge's row, whether the table shifts out
-    its oldest row first, the valid edges, then each row's i, j and weight]. Writes the map, the tracker state and the
-    table; returns (the new edge's T_ij, PGO's last chi2, GBA's last chi2 or
-    None, the scale found or None)."""
+def _correct_head(K: Intrinsics, m: sm.SlamMap, state: tr.TrackState, T_loop: lie.SE3,
+                  table: lie.SE3, host: torch.Tensor, *, cfg, merge: bool, gba: bool):
+    """The correction up to its GBA: the new edge into the table, PGO, the
+    re-anchoring, the Atlas merge, the fusion, and the re-triangulation or
+    the scale search where GBA follows. Returns (map, state, table, the new
+    edge's T_ij, PGO's last chi2, the scale found or None, keyframe j's pose
+    before the correction)."""
     dev = m.kf_valid.device
     E_cap = cfg.max_loop_edges
     i, j = host[0].to(torch.int32), host[1].to(torch.int32)
@@ -267,7 +265,7 @@ def loop_correct_region(K: Intrinsics, m: sm.SlamMap, state: tr.TrackState, T_lo
         m = fuse_loop_landmarks(K, m, i, j)
     # re-triangulation (or the scale search) exists to put GBA in a
     # better basin, so it runs only when GBA will
-    scale_est = gba_chi2 = None
+    scale_est = None
     if gba and cfg.scale_search_halfrange > 0:
         h = cfg.scale_search_halfrange
         n = cfg.scale_search_points | 1          # odd: 1.0 is in the grid
@@ -277,22 +275,60 @@ def loop_correct_region(K: Intrinsics, m: sm.SlamMap, state: tr.TrackState, T_lo
         obs = ba.Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr,
                               sigma2=m.obs_sigma2, valid=m.obs_valid)
         m = m._replace(lm_pos=ba.retriangulate_points(K, m.kf_T_cw, m.lm_pos, obs, m.lm_valid))
-    # global BA over every pose and landmark, queued and never waited
-    # for: its chi2 stays a device scalar in the record
-    if gba:
-        if mesh is not None:
-            m, gba_chis = sm.global_ba_dist(m, K, mesh, iters=cfg.gba_iters)
-            gba_chi2 = gba_chis[-1]
-        else:
-            m, gba_stats = sm.global_ba(m, K, iters=cfg.gba_iters)
-            gba_chi2 = gba_stats.chi2[-1]
-    # the current frame may be several frames past keyframe j (the poll
-    # lags the camera), so the correction is composed, not imposed:
-    # C_new = C_old * T_j_old^-1 * T_j_new
+    return m, state, table, T_ij, chis[-1], scale_est, T_j_old
+
+
+def _rebased(m: sm.SlamMap, state: tr.TrackState, T_j_old: lie.SE3, j) -> tr.TrackState:
+    """The tracker after the correction. The current frame may be several
+    frames past keyframe j (the poll lags the camera), so the correction is
+    composed, not imposed: C_new = C_old * T_j_old^-1 * T_j_new."""
     T_j_new = lie.SE3(tr.take(m.kf_T_cw.R, j), tr.take(m.kf_T_cw.t, j))
     T_cur = lie.compose(lie.compose(state.T_cw, lie.inverse(T_j_old)), T_j_new)
-    state = state._replace(T_cw=T_cur, T_cw_last_kf=T_cur)
-    return (None, m, state, None, table), (T_ij, chis[-1], gba_chi2, scale_est)
+    return state._replace(T_cw=T_cur, T_cw_last_kf=T_cur)
+
+
+def loop_correct_region(K: Intrinsics, m: sm.SlamMap, state: tr.TrackState, T_loop: lie.SE3,
+                        table: lie.SE3, host: torch.Tensor, *, cfg, merge: bool, gba: bool):
+    """Region ``loop_correct[...]``: the correction of the verified loop
+    between candidate keyframe i and keyframe j (``T_loop``: keyframe j's
+    camera pose the loop implies). ``table`` is the loop-edge table's
+    measured poses (``cfg.max_loop_edges`` rows, identity where unused);
+    ``host`` is float32 [i, j, the merged maps' ids (the older, kept; the
+    newer, welded into it), the new edge's row, whether the table shifts out
+    its oldest row first, the valid edges, then each row's i, j and weight]. Writes the map, the tracker state and the
+    table; returns (the new edge's T_ij, PGO's last chi2, GBA's last chi2 or
+    None, the scale found or None)."""
+    m, state, table, T_ij, pgo_chi2, scale_est, T_j_old = _correct_head(
+        K, m, state, T_loop, table, host, cfg=cfg, merge=merge, gba=gba)
+    # global BA over every pose and landmark, queued and never waited
+    # for: its chi2 stays a device scalar in the record
+    gba_chi2 = None
+    if gba:
+        m, gba_stats = sm.global_ba(m, K, iters=cfg.gba_iters)
+        gba_chi2 = gba_stats.chi2[-1]
+    state = _rebased(m, state, T_j_old, host[1].to(torch.int32))
+    return (None, m, state, None, table), (T_ij, pgo_chi2, gba_chi2, scale_est)
+
+
+def loop_correct_head_region(K: Intrinsics, m: sm.SlamMap, state: tr.TrackState,
+                             T_loop: lie.SE3, table: lie.SE3, host: torch.Tensor, *, cfg,
+                             merge: bool):
+    """Region ``loop_correct[...]`` of a correction whose GBA runs sharded
+    over a mesh: ``loop_correct_region`` up to its GBA (which needs host
+    reads and collectives, so it runs between this region and
+    ``loop_rebase``). Writes the map, the tracker state and the table;
+    returns (T_ij, PGO's last chi2, the scale found or None, keyframe j's
+    pose before the correction)."""
+    m, state, table, T_ij, pgo_chi2, scale_est, T_j_old = _correct_head(
+        K, m, state, T_loop, table, host, cfg=cfg, merge=merge, gba=True)
+    return (None, m, state, None, table), (T_ij, pgo_chi2, scale_est, T_j_old)
+
+
+def loop_rebase_region(m: sm.SlamMap, state: tr.TrackState, T_j_old: lie.SE3,
+                       host: torch.Tensor):
+    """Region ``loop_rebase``: the tracker re-based by the correction of
+    keyframe ``host[1]`` after a mesh's GBA. Writes the state."""
+    return (None, _rebased(m, state, T_j_old, host[1].to(torch.int32))), ()
 
 
 #: an engine's calls of each loop-closing region that run as plain PyTorch
@@ -415,13 +451,30 @@ class LoopCloser:
             ("merge", merged is not None), ("fuse", cfg.fuse_landmarks), ("gba", run_gba),
             ("scale", run_gba and cfg.scale_search_halfrange > 0),
             ("retri", run_gba and cfg.scale_search_halfrange <= 0 and cfg.retriangulate)) if on)
-        fn = functools.partial(loop_correct_region, cfg=cfg, merge=merged is not None,
-                               gba=run_gba, mesh=mesh)
-        # the sharded GBA's collectives are not captured: that correction is eager
-        (_, m, state, _, self._edge_table, _), out = (jit.run_eagerly if mesh else run)(
-            "loop_correct" + variant, fn, self.K, m, slam.state, T_loop, self._edge_table,
-            upload(host, dev))
-        T_ij, pgo_chi2, gba_chi2, scale_est = keep(out)
+        host_t = upload(host, dev)
+        if mesh is None or not run_gba:
+            fn = functools.partial(loop_correct_region, cfg=cfg, merge=merged is not None,
+                                   gba=run_gba)
+            (_, m, state, _, self._edge_table, _), out = run(
+                "loop_correct" + variant, fn, self.K, m, slam.state, T_loop, self._edge_table,
+                host_t)
+            T_ij, pgo_chi2, gba_chi2, scale_est = keep(out)
+        else:
+            # the sharded GBA routes its observations on the host and
+            # reduces across the ranks, so it runs between two regions:
+            # the correction up to it, and the tracker's re-base after it
+            fn = functools.partial(loop_correct_head_region, cfg=cfg, merge=merged is not None)
+            (_, m, state, _, self._edge_table, _), (*out, T_j_old) = run(
+                "loop_correct" + variant.replace("+gba", "+gba_dist"), fn, self.K, m,
+                slam.state, T_loop, self._edge_table, host_t)
+            T_ij, pgo_chi2, scale_est = keep(tuple(out))
+            m, gba_chis = sm.global_ba_dist(m, self.K, mesh, iters=cfg.gba_iters,
+                                            capture=getattr(slam, "capture", True))
+            gba_chi2 = gba_chis[-1]
+            slam.map = m
+            m = slam.map                          # the engine's buffers, when it has them
+            (_, state, _, _), _ = run("loop_rebase", loop_rebase_region, m, state, T_j_old,
+                                      host_t)
         self.loop_edges.append((i, j, T_ij, edge_w))
         slam.map, slam.state = m, state
         return {

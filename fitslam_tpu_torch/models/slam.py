@@ -53,20 +53,26 @@ from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 REFINE_EAGER_CYCLES = 40
 
 
-def refine_cycle_region(K: Intrinsics, m: sm.SlamMap, *, gba_iters: int, stereo_weight: float,
-                        mesh=None):
-    """Region ``refine_cycle``: every landmark re-triangulated under the
-    current poses, then global BA (landmark-sharded over ``mesh`` where
-    given). Writes the map; returns GBA's last chi2."""
+def _retriangulated(K: Intrinsics, m: sm.SlamMap, stereo_weight: float) -> sm.SlamMap:
+    """Every landmark re-triangulated under the current poses."""
     obs = ba.Observations(kf=m.obs_kf, lm=m.obs_lm, uvr=m.obs_uvr,
                           sigma2=m.obs_sigma2, valid=m.obs_valid)
-    m = m._replace(lm_pos=ba.retriangulate_points(
+    return m._replace(lm_pos=ba.retriangulate_points(
         K, m.kf_T_cw, m.lm_pos, obs, m.lm_valid, stereo_weight=stereo_weight))
-    if mesh is not None:
-        m, chis = sm.global_ba_dist(m, K, mesh, iters=gba_iters)
-        return (None, m), chis[-1]
-    m, stats = sm.global_ba(m, K, iters=gba_iters)
+
+
+def refine_cycle_region(K: Intrinsics, m: sm.SlamMap, *, gba_iters: int, stereo_weight: float):
+    """Region ``refine_cycle``: every landmark re-triangulated under the
+    current poses, then global BA. Writes the map; returns GBA's last chi2."""
+    m, stats = sm.global_ba(_retriangulated(K, m, stereo_weight), K, iters=gba_iters)
     return (None, m), stats.chi2[-1]
+
+
+def refine_retri_region(K: Intrinsics, m: sm.SlamMap, *, stereo_weight: float):
+    """Region ``refine_retri``: a refine cycle's re-triangulation, ahead of
+    a GBA sharded over a mesh (which runs outside every region). Writes the
+    map."""
+    return (None, _retriangulated(K, m, stereo_weight)), ()
 
 
 class StereoSlam:
@@ -408,10 +414,11 @@ class StereoSlam:
         The tracker is re-based by delta composition, as after a loop
         correction. A cycle is region ``refine_cycle`` on the map's buffers,
         captured after the engine's first ``REFINE_EAGER_CYCLES`` cycles
-        (eager) and replayed from then on. With a mesh
-        of more than one rank on the loop closer, GBA runs landmark-sharded
-        over it (``slam_map.global_ba_dist``) and the cycles run eagerly.
-        Returns the last cycle's GBA chi2 (device scalar)."""
+        (eager) and replayed from then on. With a mesh of more than one rank
+        on the loop closer, GBA runs landmark-sharded over it
+        (``slam_map.global_ba_dist``, its own regions in the mesh's slot)
+        between the cycles' re-triangulations, region ``refine_retri`` under
+        the same count. Returns the last cycle's GBA chi2 (device scalar)."""
         if self.capture:
             self._slot_state.claim()             # the cycles read the map's buffers
         m = self.map
@@ -421,13 +428,21 @@ class StereoSlam:
         T_j_old = lie.SE3(m.kf_T_cw.R[j].clone(), m.kf_T_cw.t[j].clone())
         mesh = getattr(self.loop_closer, "mesh", None)
         mesh = mesh if mesh is not None and mesh.devices.size > 1 else None
-        fn = functools.partial(refine_cycle_region, gba_iters=gba_iters,
-                               stereo_weight=stereo_weight, mesh=mesh)
-        run = (jit.run_eagerly if mesh is not None else
-               functools.partial(self._slot_state.run, eager=REFINE_EAGER_CYCLES))
+        run = functools.partial(self._slot_state.run, eager=REFINE_EAGER_CYCLES)
         chi2 = None
         for _ in range(cycles):
-            (_, m), chi2 = run(f"refine_cycle/{gba_iters}/{stereo_weight}", fn, self.K, m)
+            if mesh is None:
+                (_, m), chi2 = run(f"refine_cycle/{gba_iters}/{stereo_weight}",
+                                   functools.partial(refine_cycle_region, gba_iters=gba_iters,
+                                                     stereo_weight=stereo_weight), self.K, m)
+                continue
+            # a mesh's GBA (host routing, collectives) runs between the regions
+            (_, m), _ = run(f"refine_retri/{stereo_weight}", functools.partial(
+                refine_retri_region, stereo_weight=stereo_weight), self.K, m)
+            m, chis = sm.global_ba_dist(m, self.K, mesh, iters=gba_iters, capture=self.capture)
+            chi2 = chis[-1]
+            self.map = m
+            m = self.map                          # the buffers, when capturing
         self.map = m
         if chi2 is not None and self.capture and mesh is None:
             chi2 = self._slot_state.slot.snapshot(chi2)

@@ -524,8 +524,8 @@ def global_ba_dist(m: SlamMap, K: Intrinsics, mesh, iters: int = 8, capture: boo
     to their landmark's owner on the host (GBA runs at loop closure, rarely).
     The solver's iterations replay the mesh's captured regions
     (``capture=False``: plain PyTorch); it is called outside every other
-    region (the loop closer and ``refine_map`` run a mesh's correction
-    eagerly). Returns (map, chi2 history) on every rank; the write-back
+    region (the loop closer and ``refine_map`` run it between their engine's
+    regions). Returns (map, chi2 history) on every rank; the write-back
     mirrors ``global_ba``."""
     from fitslam_tpu_torch.parallel import dist_ba
 

@@ -17,6 +17,21 @@
   the map backend (K2 window) on frame t-1; each frame crosses as one
   broadcast of the ``StereoFrame`` packed into one byte buffer, and the
   backend's results come back to rank 0 in one more.
+
+The reference compiles each of them into one program; here a rank's device
+work between two collectives is a captured region (``utils/jit.py``) in a
+slot kept on the mesh (``Mesh.solver_state``), replayed at every later call
+of the same shapes, and the collectives run between the regions, outside
+every graph (as ``parallel/dist_ba.py``): fusion ``fuse_shard`` -> sum, max,
+min -> ``fuse_grid``; the raycast ``arrival_shard`` -> all-gather; PGO
+``pgo_assemble`` -> sum -> ``pgo_solve`` -> sum; the pipeline's rank 0
+``frontend_stereo`` (its output the packed handoff) -> broadcast, rank 1
+``models/slam_step.py``'s regions (``track``, ``keyframe``, ``compact``,
+``finish``, ...) on the received frame. The collectives are synchronous
+(``async_op=False``): on the host for gloo, and on the current stream for
+nccl, whose work the current stream waits for, so no replay overwrites a
+buffer a collective still reads or writes. ``capture=False`` runs the same
+region functions as plain PyTorch; the two are bit-equal.
 """
 
 from __future__ import annotations
@@ -32,6 +47,25 @@ from fitslam_tpu_torch.ops import raycast as raycast_mod
 from fitslam_tpu_torch.ops.grid import GridSpec2D, TraversabilityGrid, cell_stats, stats_to_grid
 from fitslam_tpu_torch.ops.numerics import segment_plan, segment_sum_fixed
 from fitslam_tpu_torch.parallel.mesh import Mesh, data_sharding, pack, pmax, pmin, psum, unpack
+from fitslam_tpu_torch.utils import jit
+
+
+def fuse_shard_region(pts_w, ok, *, spec: GridSpec2D):
+    """Region ``fuse_shard``: this rank's point shard reduced into (G*G,)
+    aggregates, count / sum / sum2 stacked for one sum across the ranks,
+    the z-extrema for one max and one min. Returns (sums, z_max, z_min)."""
+    cnt, s_z, s_z2, z_mx, z_mn = cell_stats(spec, pts_w, ok)
+    return (), (torch.stack([cnt, s_z, s_z2]), z_mx, z_mn)
+
+
+def fuse_grid_region(sums, z_mx, z_mn, *, spec: GridSpec2D, max_slope: float,
+                     ground_clearance: float, robot_height: float, security_distance: float):
+    """Region ``fuse_grid``: the stencil and classification tail on the
+    fused aggregates (replicated). Returns the grid."""
+    cnt, s_z, s_z2 = sums
+    return (), stats_to_grid(spec, (cnt, s_z, s_z2, z_mx, z_mn), max_slope=max_slope,
+                             ground_clearance=ground_clearance, robot_height=robot_height,
+                             security_distance=security_distance)
 
 
 def sharded_fuse_clouds(
@@ -44,21 +78,39 @@ def sharded_fuse_clouds(
     robot_height: float = 1.5,
     security_distance: float = 0.6,
     axis: str = "data",
+    capture: bool = True,
 ) -> TraversabilityGrid:
     """Point-sharded traversability fusion: each rank reduces its point
-    shard into (G*G,) aggregates; count / sum / sum2 combine by one sum,
-    the z-extrema by a max and a min; the stencil and classification tail
-    runs on every rank."""
+    shard into (G*G,) aggregates (region ``fuse_shard``); count / sum / sum2
+    combine by one sum, the z-extrema by a max and a min; the stencil and
+    classification tail (region ``fuse_grid``) runs on every rank. The grid
+    returned is a copy: a later call replays into the regions' buffers.
+    ``capture=False`` runs the regions as plain PyTorch."""
     n_dev = mesh.shape[axis]
     N = pts_w.shape[0]
     assert N % n_dev == 0, f"point count {N} not divisible by mesh axis {n_dev}"
     pts_shard, ok_shard = data_sharding(mesh, axis)((pts_w, ok))
-    cnt, s_z, s_z2, z_mx, z_mn = cell_stats(spec, pts_shard, ok_shard)
-    cnt, s_z, s_z2 = psum(mesh, torch.stack([cnt, s_z, s_z2]), axis)
+    kw = dict(max_slope=max_slope, ground_clearance=ground_clearance,
+              robot_height=robot_height, security_distance=security_distance)
+    st = mesh.solver_state("sharded_fuse_clouds", (spec, N, *kw.values()), axis, {}, capture)
+    _, (sums, z_mx, z_mn) = st.run("fuse_shard", functools.partial(fuse_shard_region, spec=spec),
+                                   pts_shard, ok_shard)
+    sums = psum(mesh, sums, axis)
     z_mx, z_mn = pmax(mesh, z_mx, axis), pmin(mesh, z_mn, axis)
-    return stats_to_grid(spec, (cnt, s_z, s_z2, z_mx, z_mn), max_slope=max_slope,
-                         ground_clearance=ground_clearance, robot_height=robot_height,
-                         security_distance=security_distance)
+    _, grid = st.run("fuse_grid", functools.partial(fuse_grid_region, spec=spec, **kw),
+                     sums, z_mx, z_mn)
+    return st.snapshot(grid)
+
+
+def arrival_shard_region(occ, points_xy, valid, *, spec: GridSpec2D, depth_m: float,
+                         n_rays: int, n_steps: int, fov_rad: float):
+    """Region ``arrival_shard``: the raycast of this rank's frontier shard
+    against the replicated occupancy, (F/n, 2) heading and information
+    stacked for one all-gather."""
+    heading, info = raycast_mod.arrival_information(
+        spec, occ, points_xy, valid, depth_m=depth_m, n_rays=n_rays, n_steps=n_steps,
+        fov_rad=fov_rad)
+    return (), torch.stack([heading, info], dim=1)
 
 
 def sharded_arrival_information(
@@ -72,18 +124,23 @@ def sharded_arrival_information(
     n_steps: int = 16,
     fov_rad: float = 1.04,
     axis: str = "data",
+    capture: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Frontier-sharded 360° arrival-information sweep: each rank raycasts
-    its frontier shard against the replicated occupancy; one all-gather
-    returns the full (F,) headings and information on every rank."""
+    its frontier shard against the replicated occupancy (region
+    ``arrival_shard``); one all-gather returns the full (F,) headings and
+    information on every rank (fresh tensors). ``capture=False`` runs the
+    region as plain PyTorch."""
     n_dev = mesh.shape[axis]
     F = points_xy.shape[0]
     assert F % n_dev == 0, f"frontier count {F} not divisible by mesh axis {n_dev}"
     xy_shard, valid_shard = data_sharding(mesh, axis)((points_xy, valid))
-    heading, info = raycast_mod.arrival_information(
-        spec, occ, xy_shard, valid_shard, depth_m=depth_m, n_rays=n_rays, n_steps=n_steps,
-        fov_rad=fov_rad)
-    both = mesh.all_gather(torch.stack([heading, info], dim=1), axis)
+    kw = dict(depth_m=depth_m, n_rays=n_rays, n_steps=n_steps, fov_rad=fov_rad)
+    st = mesh.solver_state("sharded_arrival_information", (spec, F, *kw.values()), axis, {},
+                           capture)
+    _, both = st.run("arrival_shard", functools.partial(arrival_shard_region, spec=spec, **kw),
+                     occ, xy_shard, valid_shard)
+    both = mesh.all_gather(both, axis)
     return both[:, 0], both[:, 1]
 
 
@@ -256,6 +313,21 @@ def _like(tree, like):
     return type(tree)(*(_like(a, b) for a, b in zip(tree, like)))
 
 
+def frontend_stereo_region(K, left, right, *, frame_like, num_features: int, num_levels: int,
+                           scale_factor: float, fast_threshold: float):
+    """Region ``frontend_stereo`` of the pipeline's rank 0: the image
+    frontend (``tracking.process_stereo``, as ``StereoSlam``'s region of that
+    name) on one stereo pair, its ``StereoFrame`` packed into the handoff's
+    byte buffer (the dtypes of ``frame_like``): the region's output is what
+    the broadcast sends."""
+    from fitslam_tpu_torch.models import tracking as tr_mod
+
+    f = tr_mod.process_stereo(K, left, right, num_features=num_features,
+                              num_levels=num_levels, scale_factor=scale_factor,
+                              fast_threshold=fast_threshold)
+    return (), pack(_like(f, frame_like))
+
+
 def stage_pipelined_slam(
     mesh: Mesh,
     K,                             # Intrinsics (replicated)
@@ -269,6 +341,7 @@ def stage_pipelined_slam(
     fast_threshold: float,
     backend_kwargs: dict,
     axis: str = "stage",
+    capture: bool = True,
 ):
     """Two-stage SLAM pipeline over the two ranks of the ``axis`` mesh.
 
@@ -278,10 +351,16 @@ def stage_pipelined_slam(
     fill (backend idle), step T the drain (frontend idle). In steady state a
     step takes max(frontend, backend) instead of their sum.
 
+    Captured, each rank's work between the broadcasts replays regions of a
+    slot on the mesh: rank 0 ``frontend_stereo``, whose packed output is
+    the broadcast's buffer; rank 1 the backend step's regions
+    (``slam_step.backend_step``) on the received frame, the map, tracker
+    state and frame id in the slot's buffers, its host reads the step's
+    own. ``capture=False`` runs the same functions as plain PyTorch.
+
     Returns (final map, final tracker state, StepOutputs for frames 0..T-1
     stacked along a leading axis) as the backend saw them, on both ranks."""
     from fitslam_tpu_torch.models import slam_step as step_mod
-    from fitslam_tpu_torch.models import tracking as tr_mod
 
     assert mesh.shape[axis] == 2, f"stage pipeline needs a 2-wide '{axis}' axis"
     T = frames_lr.shape[0]
@@ -289,12 +368,19 @@ def stage_pipelined_slam(
     frame_like = _zero_frame(num_features, dev)
     outs_like = _zero_outputs(T, dev)
     frame_buf = torch.empty_like(pack(frame_like))
+    orb_kw = dict(num_features=num_features, num_levels=num_levels, scale_factor=scale_factor,
+                  fast_threshold=fast_threshold)
+    # the regions' shapes and the settings they bake in
+    key = (tuple(frames_lr.shape[1:]), tuple(orb_kw.values()), m.capacity,
+           tuple(m.kf_signature.shape), tuple(sorted(backend_kwargs.items())))
     if mesh.axis_index(axis) == 0:
+        st = mesh.solver_state("stage_pipelined_slam", key, axis, dict(K=K), capture)
+        if capture:
+            st.claim()                   # the regions read K where it lies
+        frontend = functools.partial(frontend_stereo_region, frame_like=frame_like, **orb_kw)
         for t in range(T):
-            f = tr_mod.process_stereo(K, frames_lr[t, 0], frames_lr[t, 1],
-                                      num_features=num_features, num_levels=num_levels,
-                                      scale_factor=scale_factor, fast_threshold=fast_threshold)
-            buf = pack(_like(f, frame_like))
+            _, buf = st.run("frontend_stereo", frontend, st["K"], frames_lr[t, 0],
+                            frames_lr[t, 1])
             if buf.numel() != frame_buf.numel():
                 raise ValueError(f"the frontend's frame packs to {buf.numel()} bytes, the "
                                  f"handoff holds {frame_buf.numel()}")
@@ -304,18 +390,27 @@ def stage_pipelined_slam(
         buf = mesh.broadcast(torch.empty_like(pack(result_like)), 1, axis)
         return unpack(buf, result_like)
 
+    st = mesh.solver_state(
+        "stage_pipelined_slam", key, axis,
+        dict(K=K, map=m, state=state, frame_id=torch.zeros((), dtype=torch.int32, device=dev)),
+        capture)
+    fid_buf = st.claim().buffers["frame_id"] if capture else None
     # the tracker's initialized flag, mirrored on the host as StereoSlam does
     initialized = bool(state.initialized.item())
-    m_c, st_c, feat_prev, outs = m, state, None, []
+    feat_prev, outs = None, []
     for t in range(T + 1):
         if t >= 1:
-            m_c, st_c, o, inserted, _ = step_mod._backend_body(
-                K, m_c, st_c, feat_prev, t - 1, initialized=initialized, **backend_kwargs)
+            m_c, st_c, o, _, inserted, _ = step_mod.backend_step(
+                st.run, st["K"], st["map"], st["state"], feat_prev, t - 1,
+                initialized=initialized, frame_id_buf=fid_buf, **backend_kwargs)
+            st["map"], st["state"] = m_c, st_c
             initialized = initialized or inserted
-            outs.append(o)
+            # kept: the next frame's regions overwrite their outputs
+            outs.append(st.snapshot(o))
         if t < T:
             feat_prev = unpack(mesh.broadcast(frame_buf, 0, axis), frame_like)
     stacked = type(outs_like)(*(torch.stack(v) for v in zip(*outs)))
-    result = (m_c, st_c, _like(stacked, outs_like))
+    keep = jit.clone if capture else (lambda tree: tree)
+    result = (keep(st["map"]), keep(st["state"]), _like(stacked, outs_like))
     mesh.broadcast(pack(result), 1, axis)
     return result
