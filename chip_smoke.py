@@ -3880,8 +3880,8 @@ def _loop_profile(system, what):
     call()
     read, after = ex._read, []
 
-    def marked_read(t):
-        v = read(t)
+    def marked_read(t, site):
+        v = read(t, site)
         if not after:            # the tick's packed read: what follows is eager
             after.append(torch.profiler.record_function("after_read"))
             after[0].__enter__()

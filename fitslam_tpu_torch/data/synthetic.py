@@ -39,7 +39,7 @@ import torch
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics, project_stereo
 from fitslam_tpu_torch.ops.numerics import fma32, segment_sum_fixed, top_k_stable, true_div
-from fitslam_tpu_torch.utils import jit, prng
+from fitslam_tpu_torch.utils import jit, profiling, prng
 from fitslam_tpu_torch.utils.transfer import upload
 
 # the integer the reference's world_from_occupancy seeds its RandomState
@@ -584,6 +584,7 @@ class SimCamera:
         on the eager path."""
         return self._slot_state.stats()
 
+    @profiling.layer("SimCamera.frame")
     def frame(self, T_wc: lie.SE3):
         """The frame at the world-from-camera pose ``T_wc`` (device
         tensors): (left, right) or (image, depth), then (cloud points, mask)

@@ -54,7 +54,7 @@ from fitslam_tpu_torch.models.slam import StereoSlam
 from fitslam_tpu_torch.ops import fisher, lie
 from fitslam_tpu_torch.ops import grid as gridops
 from fitslam_tpu_torch.ops.grid import GridSpec2D
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 from fitslam_tpu_torch.utils.transfer import upload
@@ -292,7 +292,9 @@ class ActiveSlamSystem:
             T_np = np.asarray(pose_wc_np, np.float64)
             if self.T_anchor is not None:
                 if self._anchor_np is None:
-                    self._anchor_np = self.T_anchor.matrix().cpu().numpy().astype(np.float64)
+                    with profiling.host_read("ActiveSlamSystem.anchor", self.device):
+                        anchor = self.T_anchor.matrix().cpu().numpy()
+                    self._anchor_np = anchor.astype(np.float64)
                     self._host_syncs += 1
                 T_np = self._anchor_np @ T_np
             fwd = T_np[:3, 2]
@@ -300,7 +302,8 @@ class ActiveSlamSystem:
         T = self.slam.current_pose_wc  # slam frame
         if self.T_anchor is not None:
             T = lie.compose(self.T_anchor, T)
-        v = torch.cat([T.R[:, 2], T.t]).cpu().numpy()
+        with profiling.host_read("ActiveSlamSystem.slam_pose", self.device):
+            v = torch.cat([T.R[:, 2], T.t]).cpu().numpy()
         self._host_syncs += 1
         yaw = math.atan2(float(v[1]), float(v[0]))  # camera +z (forward)
         return v[3:5].astype(np.float64), yaw
@@ -318,7 +321,8 @@ class ActiveSlamSystem:
             self._ekf_dirty = False
             self._ekf_pose_cache = (m[[loc.X, loc.Y]].astype(np.float64), float(m[loc.YAW]))
         if self._ekf_pose_cache is None:
-            x = self.ekf.map_state.x[:loc.YAW + 1].cpu().numpy()
+            with profiling.host_read("ActiveSlamSystem.ekf_pose", self.device):
+                x = self.ekf.map_state.x[:loc.YAW + 1].cpu().numpy()
             self._host_syncs += 1
             self._ekf_pose_cache = (x[[loc.X, loc.Y]].astype(np.float64), float(x[loc.YAW]))
         return self._ekf_pose_cache
@@ -375,6 +379,7 @@ class ActiveSlamSystem:
     # SLAM + mapping
     # ------------------------------------------------------------------
 
+    @profiling.layer("ActiveSlamSystem.process_frame")
     def process_frame(self, img_left, img_right,
                       cloud_c: Optional[torch.Tensor] = None,
                       cloud_valid: Optional[torch.Tensor] = None) -> Dict:
@@ -494,7 +499,9 @@ class ActiveSlamSystem:
     def fisher_information_of_pose(self, robot_xy, robot_yaw,
                                    exhaustive: bool = False) -> float:
         """The same scalar read back (one counted read)."""
-        v = float(self.fisher_information_of_pose_device(robot_xy, robot_yaw, exhaustive))
+        v = self.fisher_information_of_pose_device(robot_xy, robot_yaw, exhaustive)
+        with profiling.host_read("ActiveSlamSystem.fisher_information", self.device):
+            v = float(v)
         self._host_syncs += 1
         return v
 
@@ -517,6 +524,7 @@ class ActiveSlamSystem:
         self.slam.poll_keyframe_events()
         return self.slam.finalize()
 
+    @profiling.layer("ActiveSlamSystem.tick_exploration")
     def tick_exploration(self):
         """Drain the keyframe events of the async frame path (one batched
         readback: cloud association fires here), then tick the explorer on

@@ -37,7 +37,7 @@ from fitslam_tpu_torch.models.exploration import GoalStatus
 from fitslam_tpu_torch.ops import frontier as fx
 from fitslam_tpu_torch.ops.grid import GridSpec2D
 from fitslam_tpu_torch.ops.numerics import div_const, fma32
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.transfer import upload
 
 BIG = 1e9
@@ -221,7 +221,8 @@ def auction_assign(
             owner, price, rounds, *consts)
         done_rounds += chunk
         # the reference's loop condition and the round count, read once a chunk
-        more_n, rounds_n = flags.cpu().tolist()
+        with profiling.host_read("auction_assign.chunk", flags.device):
+            more_n, rounds_n = flags.cpu().tolist()
         syncs += 1
         if not more_n:
             break
@@ -355,7 +356,8 @@ class TaskAllocator:
             self.auction_rounds.append(stats["rounds"])
         self.host_syncs += 1
         # a copy: on the CPU the read is a view of the region's output buffer
-        return assign.cpu().numpy().copy()
+        with profiling.host_read("TaskAllocator.assign", self.device):
+            return assign.cpu().numpy().copy()
 
 
 def cost_matrix(spec: GridSpec2D, cfg, occ: torch.Tensor, robots_xy: torch.Tensor,
@@ -457,7 +459,8 @@ class MultiRobotCoordinator:
             "coordinator", functools.partial(coordinator_region, spec=self.spec, cfg=self.cfg),
             occ, host)
         # a copy: on the CPU the read is a view of the region's output buffer
-        pk = packed.cpu().numpy().copy()
+        with profiling.host_read("MultiRobotCoordinator.tick", self.device):
+            pk = packed.cpu().numpy().copy()
         self._syncs += 1
         F = (pk.shape[0]) // (3 + R)
         valid = pk[:F] > 0.5

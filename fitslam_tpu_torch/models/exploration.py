@@ -63,7 +63,7 @@ from fitslam_tpu_torch.ops import fisher
 from fitslam_tpu_torch.ops import frontier as fx
 from fitslam_tpu_torch.ops import lie, raycast
 from fitslam_tpu_torch.ops.grid import UNKNOWN, GridSpec2D
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils import logging as logx
 from fitslam_tpu_torch.utils import prng
 from fitslam_tpu_torch.utils.config import FitSlamConfig
@@ -465,10 +465,11 @@ class ExplorationServer:
             return x.to(self.device)
         return upload(np.asarray(x), self.device)
 
-    def _read(self, t: torch.Tensor) -> np.ndarray:
-        """One counted device->host read."""
+    def _read(self, t: torch.Tensor, site: str) -> np.ndarray:
+        """One counted device->host read, a ``sync`` span of ``site``."""
         self.host_syncs += 1
-        return t.cpu().numpy()
+        with profiling.host_read(f"ExplorationServer.{site}", self.device):
+            return t.cpu().numpy()
 
     # ------------------------------------------------------------------
     # Main tick
@@ -516,7 +517,7 @@ class ExplorationServer:
         # device->host pull of every per-tick control-flow scalar
         with self.log.scope("exploration.tick", MODULE):
             (vals_d,) = self._tick_device(occ, robot_xy, robot_yaw)
-        vals = self._read(vals_d)
+        vals = self._read(vals_d, "tick")
         fi_prefetched = float(vals[7]) if float(vals[7]) > -1e29 else None
 
         n_frontiers = int(vals[0])
@@ -712,7 +713,7 @@ class ExplorationServer:
         # parent row + BF source + goal node + node coordinates in ONE pull
         _, packed = self._slot_state.run("publish", publish_region, self.roadmap, self._bf,
                                          self._upload_xy(goal_xy))
-        pk = self._read(packed)
+        pk = self._read(packed, "publish")
         N = self.roadmap.xy.shape[0]
         parent_h = pk[:N].astype(np.int64)
         src_h = int(pk[N])
@@ -731,7 +732,7 @@ class ExplorationServer:
         _, keep = self._slot_state.run(
             "los", functools.partial(los_region, spec=self.spec), occ,
             upload(np.concatenate([wp.reshape(-1), wv.astype(np.float32)]), self.device))
-        return wp[self._read(keep)]
+        return wp[self._read(keep, "los")]
 
     # ------------------------------------------------------------------
     # Fisher-information retry ladder (§3.3)
@@ -886,7 +887,7 @@ class ExplorationServer:
             "recovery", fn, occ,
             upload(np.concatenate([np.asarray(robot_xy, np.float32), dirs.reshape(-1)]),
                    self.device), eager=RARE_EAGER_CALLS["recovery"])
-        return self._read(free)
+        return self._read(free, "recovery")
 
     def _tick_recovery(self, occ, robot_xy, robot_yaw) -> ExplorationState:
         """Open-loop recovery move toward the freer direction (E14). Both
@@ -948,7 +949,7 @@ class ExplorationServer:
         _, cell = self._slot_state.run(
             "goal_cell", functools.partial(goal_cell_region, spec=self.spec), occ,
             self._upload_xy(goal), eager=RARE_EAGER_CALLS["goal_cell"])
-        return int(self._read(cell)[0])
+        return int(self._read(cell, "goal_cell")[0])
 
     def _on_goal_failure(self, goal):
         key = (int(goal[0] * 4), int(goal[1] * 4))

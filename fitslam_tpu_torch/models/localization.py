@@ -35,7 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.transfer import upload
 
 STATE_DIM = 15
@@ -434,6 +434,7 @@ class DualEkf:
                          np.full(3, var), dt, gate)
         self._map_rows.append(row)
 
+    @profiling.layer("DualEkf.flush")
     def flush(self) -> Tuple[np.ndarray, np.ndarray]:
         """Fuse all buffered rows; returns (odom_pose, map_pose) as
         [x, y, z, roll, pitch, yaw], read back in one copy. Rows are padded
@@ -455,7 +456,9 @@ class DualEkf:
                 self.windows += 1
             self._odom_rows.clear()
             self._map_rows.clear()
-        v = torch.cat([self.odom_state.x[:6], self.map_state.x[:6]]).cpu().numpy()
+        v = torch.cat([self.odom_state.x[:6], self.map_state.x[:6]])
+        with profiling.host_read("DualEkf.flush", self.device):
+            v = v.cpu().numpy()
         self.host_syncs += 1
         self.flushes += 1
         return v[:6], v[6:]

@@ -50,7 +50,7 @@ from fitslam_tpu_torch.ops import ba, lie, orb, pgo
 from fitslam_tpu_torch.ops.geometry import Intrinsics
 from fitslam_tpu_torch.ops.pallas_matching import match_ratio_fused
 from fitslam_tpu_torch.ops.place import centered_cosine_scores
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.transfer import upload
 
 
@@ -373,6 +373,7 @@ class LoopCloser:
         self._last_gba_kf = -(10 ** 9)   # GBA rate limit (gba_min_interval_kf)
         self.host_syncs = 0              # device->host reads so far
 
+    @profiling.layer("LoopCloser.on_keyframe")
     def on_keyframe(self, slam, kf_idx: int, cand_idx: Optional[int] = None,
                     score: Optional[float] = None) -> Optional[dict]:
         """Called after each keyframe insertion with the candidate the backend
@@ -394,7 +395,8 @@ class LoopCloser:
             _, v = run("loop_detect", functools.partial(
                 loop_detect_region, min_gap=cfg.min_gap_keyframes),
                 m, upload(kf_idx, dev, torch.int32))
-            v = v.cpu().tolist()
+            with profiling.host_read("LoopCloser.detect", dev):
+                v = v.cpu().tolist()
             self.host_syncs += 1
             cand_idx, score = int(v[0]), float(v[1])
         if cand_idx < 0 or score < cfg.min_score:
@@ -415,7 +417,8 @@ class LoopCloser:
                              upload([i, j], dev, torch.int32))
         # ONE packed pull for every host decision of this correction: the
         # inlier count and the Atlas map ids of both loop ends
-        v = v.cpu().tolist()
+        with profiling.host_read("LoopCloser.verify", dev):
+            v = v.cpu().tolist()
         self.host_syncs += 1
         if int(v[0]) < cfg.min_matches:
             return None

@@ -29,7 +29,7 @@ import torch
 from fitslam_tpu_torch.ops import grid as gridops
 from fitslam_tpu_torch.ops.grid import LETHAL, UNKNOWN, GridSpec2D, cell_centres
 from fitslam_tpu_torch.ops.pallas_grid import BIG, wavefront_sweeps
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.transfer import upload
 
 # descent moves as (dy, dx) and the extra cost of a diagonal step, per device
@@ -397,7 +397,8 @@ class Costmap:
         self._ensure_cache()
         occ, spec = self._cache_val
         if self._np_for is not self._cache_key:
-            self._np_val = occ.cpu().numpy()
+            with profiling.host_read("Costmap.grid_full", occ.device):
+                self._np_val = occ.cpu().numpy()
             self._np_for = self._cache_key
             self.host_syncs += 1
         return self._np_val, spec

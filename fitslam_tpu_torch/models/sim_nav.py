@@ -30,7 +30,7 @@ from fitslam_tpu_torch.models import nav as navx
 from fitslam_tpu_torch.models.exploration import GoalStatus, NavInterface
 from fitslam_tpu_torch.models.sim_robot import DiffDriveRobot
 from fitslam_tpu_torch.ops.grid import GridSpec2D
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.transfer import upload
 
@@ -158,6 +158,7 @@ class SimNavInterface(NavInterface):
 
     # -- control loop (called at controller rate by the simulation) --
 
+    @profiling.layer("SimNavInterface.step")
     def step(self):
         if self._status != GoalStatus.ACTIVE or self._goal is None:
             return
@@ -175,7 +176,8 @@ class SimNavInterface(NavInterface):
             _, packed = self._slot_state.run("plan", fn, occ, host)
             self.plans += 1
             # one packed pull for path + mask
-            pk = packed.cpu().numpy()
+            with profiling.host_read("SimNavInterface.plan", self.device):
+                pk = packed.cpu().numpy()
             n = pk.shape[0] // 3
             pts = pk[:2 * n].reshape(n, 2)[pk[2 * n:] > 0.5]
             if len(pts) == 0:

@@ -41,7 +41,7 @@ from fitslam_tpu_torch.models.slam_step import StepOutputs, backend_step
 from fitslam_tpu_torch.ops import ba, lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics
 from fitslam_tpu_torch.ops.place import signature_from_descriptors
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 from fitslam_tpu_torch.utils.profiling import MODULE, EventLogger
 
@@ -208,6 +208,7 @@ class StereoSlam:
         self._track_initialized = self._track_initialized or inserted
         return outs, lost
 
+    @profiling.layer("StereoSlam.process_frame")
     def process_frame(self, img_left, img_right) -> Dict:
         """Track one stereo frame and read its result back."""
         with self.log.scope("frontend", MODULE):
@@ -283,7 +284,9 @@ class StereoSlam:
     def _process_poll_window(self, start, count, host, done):
         """Fire keyframe callbacks and loop closing for one polled window."""
         if done is not None:
-            done.synchronize()
+            # the copy's event: later frames may be queued behind it
+            with profiling.host_read("StereoSlam.poll", self.device, drained=False):
+                done.synchronize()
             self.host_syncs += 1
         flags = host.numpy()
         events = []
@@ -330,7 +333,9 @@ class StereoSlam:
                          for o in self.outs_log]),
             torch.stack([o.ref_T_cw_R.reshape(9) for o in self.outs_log]),
             torch.stack([o.ref_T_cw_t for o in self.outs_log]),
-        ], dim=1).cpu().numpy()
+        ], dim=1)
+        with profiling.host_read("StereoSlam.finalize", self.device):
+            flat = flat.cpu().numpy()
         self.host_syncs += 1
         for row in flat:
             self.trajectory.append(row[:16].reshape(4, 4).astype(np.float64))
@@ -354,7 +359,9 @@ class StereoSlam:
                  if isinstance(v, torch.Tensor)]
         if not cells:
             return
-        vals = torch.stack([ev[k].float().reshape(()) for ev, k in cells]).cpu().tolist()
+        vals = torch.stack([ev[k].float().reshape(()) for ev, k in cells])
+        with profiling.host_read("StereoSlam.loop_events", self.device):
+            vals = vals.cpu().tolist()
         self.host_syncs += 1
         for (ev, k), v in zip(cells, vals):
             ev[k] = v
@@ -366,7 +373,9 @@ class StereoSlam:
         cfg = self.cfg
         with self.log.scope("backend_step", MODULE):
             step = self._step(frame)
-            outs, lost = self._slot_state.slot.to_host(step) if self.capture else jit.to_host(step)
+            with profiling.host_read("StereoSlam.step", self.device):
+                outs, lost = (self._slot_state.slot.to_host(step) if self.capture
+                              else jit.to_host(step))
             self.host_syncs += 1
         n_inl, was_kf, kf_idx_h, ref_kf = (int(outs.n_inliers), bool(outs.was_keyframe),
                                            int(outs.kf_idx), int(outs.ref_kf))
@@ -422,7 +431,8 @@ class StereoSlam:
         if self.capture:
             self._slot_state.claim()             # the cycles read the map's buffers
         m = self.map
-        j = max(int(m.n_kf) - 1, 0)
+        with profiling.host_read("StereoSlam.refine_map", self.device):
+            j = max(int(m.n_kf) - 1, 0)
         self.host_syncs += 1
         # copied: the cycles below overwrite the map in place
         T_j_old = lie.SE3(m.kf_T_cw.R[j].clone(), m.kf_T_cw.t[j].clone())
@@ -463,7 +473,9 @@ class StereoSlam:
         # finalize() read back are on the host: one read for the former
         then = [T.matrix() for _, T in self._traj_ref]
         on_dev = [n for n, M in enumerate(then) if M.device != torch.device("cpu")]
-        pulled = torch.cat([now] + [then[n][None] for n in on_dev]).cpu().numpy()
+        pulled = torch.cat([now] + [then[n][None] for n in on_dev])
+        with profiling.host_read("StereoSlam.corrected_trajectory", self.device):
+            pulled = pulled.cpu().numpy()
         self.host_syncs += 1
         K_cap = now.shape[0]
         for r, n in enumerate(on_dev):
@@ -488,12 +500,16 @@ class StereoSlam:
         sig = signature_from_descriptors(frame.feats.desc, frame.feats.valid)
         # no temporal gap: every valid keyframe is a relocalization target
         cand = detect_loop(m, sig, K_cap + 1, min_gap=-K_cap)
+        with profiling.host_read("StereoSlam.reloc_score", self.device):
+            score = float(cand.score)
         self.host_syncs += 1
-        if float(cand.score) < cfg.reloc_min_score:
+        if score < cfg.reloc_min_score:
             return False
         T_loop, n_inl = verify_loop(self.K, m, frame, cand.kf_idx)
+        with profiling.host_read("StereoSlam.reloc_inliers", self.device):
+            n_inl = int(n_inl)
         self.host_syncs += 1
-        if int(n_inl) < cfg.reloc_min_inliers:
+        if n_inl < cfg.reloc_min_inliers:
             return False
         dev = m.kf_valid.device
         self.state = self.state._replace(
@@ -519,7 +535,8 @@ class StereoSlam:
         """`orb_slam3_get_map_data` equivalent: keyframe graph + landmarks
         (one read of the keyframe count), copies that later steps leave
         alone."""
-        n_kf = int(self.map.n_kf)
+        with profiling.host_read("StereoSlam.map_data", self.device):
+            n_kf = int(self.map.n_kf)
         self.host_syncs += 1
         return {
             "kf_poses_T_cw": lie.SE3(self.map.kf_T_cw.R[:n_kf].clone(),

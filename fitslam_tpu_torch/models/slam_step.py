@@ -34,7 +34,7 @@ from fitslam_tpu_torch.models.loop_closing import detect_loop
 from fitslam_tpu_torch.ops import lie
 from fitslam_tpu_torch.ops.geometry import Intrinsics
 from fitslam_tpu_torch.ops.place import signature_from_descriptors
-from fitslam_tpu_torch.utils import jit
+from fitslam_tpu_torch.utils import jit, profiling
 
 
 class StepOutputs(NamedTuple):
@@ -182,7 +182,8 @@ def backend_step(
         wide_radius=wide_radius, reinit_after_lost=reinit_after_lost, match_ratio=match_ratio)
     (K, m, state, frame), (lm_match, n_inl, reinit, can_insert_t) = run(
         "track" if initialized else "track_uninitialized", track, K, m, state, frame)
-    can_insert = bool(can_insert_t.item())
+    with profiling.host_read("backend_step.can_insert", can_insert_t.device):
+        can_insert = bool(can_insert_t.item())
     syncs = 1
 
     if can_insert:
@@ -198,7 +199,9 @@ def backend_step(
             "keyframe", insert, K, m, state, frame, lm_match, reinit, fid)
         if recycle_at_fraction > 0:
             syncs += 1
-            if bool(recycle.item()):
+            with profiling.host_read("backend_step.recycle", recycle.device):
+                recycle_now = bool(recycle.item())
+            if recycle_now:
                 (m,), _ = run("compact", functools.partial(
                     compact_region, target_fraction=recycle_target_fraction), m)
         (m, state, *_), (outs, lost) = run(

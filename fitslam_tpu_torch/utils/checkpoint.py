@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.utils import profiling
 from fitslam_tpu_torch.utils.transfer import upload
 
 
@@ -143,7 +144,8 @@ def _restore_slam(slam, groups, meta) -> None:
     if "track_initialized" in meta:
         slam._track_initialized = bool(meta["track_initialized"])
     else:   # a reference file: read the restored tracker's flag
-        slam._track_initialized = bool(slam.state.initialized)
+        with profiling.host_read("load_slam.initialized", slam.device):
+            slam._track_initialized = bool(slam.state.initialized)
         slam.host_syncs += 1
     slam.outs_log, slam._outs_fids = [], []
     slam._polled_until, slam._poll_pending = 0, None

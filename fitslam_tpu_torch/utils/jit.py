@@ -32,6 +32,12 @@ counters of the kernel wrappers (``.launches``), bumped in Python, move
 only while a region is captured: the change seen then is added again at
 every replay, so they count as the eager path does.
 
+Every call of a region is a span of ``utils/profiling.RECORDER`` of its kind
+(``replay``: one graph launch from the host, with the static inputs' copies;
+``eager``, ``warm_up``, ``capture``) and bumps the recorder's counters,
+which outlive the slots and ``release_idle``: ``RECORDER.captures`` counts
+every capture of the process.
+
 Slots are cached by key (device and the static settings: every argument of
 the configuration that shapes the regions). An owner claims a slot; a slot
 whose owner is gone is taken by the next owner of the same key, so a fresh
@@ -49,6 +55,8 @@ from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from fitslam_tpu_torch.utils import profiling
 
 _ALIGN = 16
 
@@ -378,23 +386,34 @@ class CapturedStep:
 
     def _call(self, dev, args):
         if dev.type != "cuda":
-            return self._eager_through_buffers(args)
+            with profiling.span(self.name, "eager", dev):
+                return self._eager_through_buffers(args)
         if self.eager_now():
-            self.calls += 1
-            self.written, out = _run_region(self.fn, args)
+            with profiling.span(self.name, "eager", dev):
+                self.calls += 1
+                self.written, out = _run_region(self.fn, args)
             return args, out
         if self.calls == 0:
             self.calls = 1
-            return self._warm_up(args)
+            with profiling.span(self.name, "warm_up", dev):
+                return self._warm_up(args)
         if self.graph is None:
-            self._capture(args)
+            with profiling.span(self.name, "capture", dev):
+                self._capture(args)
+            self.replay()
         else:
-            self._load(args)
-        self.replay()
+            with profiling.span(self.name, "replay", dev):
+                self._load(args)
+                self._replay()
         return self._result(args)
 
     def replay(self) -> None:
-        """One replay of the captured graph, counted as its launches."""
+        """One replay of the captured graph, counted as its launches and as
+        a ``replay`` span."""
+        with profiling.span(self.name, "replay", self.slot.device):
+            self._replay()
+
+    def _replay(self) -> None:
         self.calls += 1
         self.graph.replay()
         _add_counts(self.launch_delta)

@@ -148,19 +148,25 @@ def test_read_pgm_equals_reference(tmp_path):
     np.testing.assert_array_equal(ttum.read_pgm(ascii_pgm), jtum.read_pgm(ascii_pgm))
 
 
-def test_event_logger_keeps_tiers_up_to_its_own():
-    import torch
-
+def test_event_logger_keeps_tiers_up_to_its_own(monkeypatch):
+    """The logger's table keeps the tiers up to its own; every scope is a
+    host span of the process's recorder, with no device interval (a scope
+    never waits for the device)."""
+    from fitslam_tpu_torch.utils import profiling
     from fitslam_tpu_torch.utils.profiling import EVENT, MODULE, EventLogger
 
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder(64, enabled=True))
     log = EventLogger(time_tier=MODULE)
     for _ in range(3):
-        with log.scope("step", MODULE, block_on=(torch.zeros(2),)):
+        with log.scope("step", MODULE):
             pass
         with log.scope("detail", EVENT):
             pass
     assert log.stats["step"].count == 3 and log.stats["step"].mean_s >= 0.0
     assert "detail" not in log.stats
+    got = profiling.spans()
+    assert [s.name for s in got] == ["step", "detail"] * 3
+    assert all(s.kind == "layer" and s.d0 is None and s.t1 >= s.t0 for s in got)
 
 
 @pytest.mark.parametrize("entry", ["models.slam:StereoSlam",
