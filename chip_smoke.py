@@ -4,7 +4,7 @@
 
 Phases, each printing one line (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit, and
-     the nvcc build of the three kernels (fitslam_tpu_torch/csrc/*.cu, one
+     the nvcc build of the four kernels (fitslam_tpu_torch/csrc/*.cu, one
      nvcc per source) and the g++ build of the native host runtime
      (csrc/runtime.cc), all started together;
   2. (two lines) K1's standalone patch gather against its plain twin at the
@@ -77,9 +77,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
  12. phase 8's active cell for 80 frames with the EKF on (the robot's pose
      from its estimate, twists through a TwistMux), once (phase 18 holds
      three more runs of it bit-equal), held to tests/test_ekf_integration.py's
-     bounds and the active bounds at frame 80, then that file's dropout at
-     full width; the cost of a flush (2
-     filters x 64 rows) and the host ms beside phase 8's;
+     bounds and the active bounds at frame 80, the EKF window kernel's
+     launches over the run equal to the windows fused, then that file's
+     dropout at full width; (a second line) the EKF window kernel beside
+     its twin on the card, one 64-row window: x within 1e-5, P within rtol
+     1e-5 / atol 1e-6, the device us a window of the kernel and of the
+     twin's captured graph, that graph's kernels and the window's bound;
+     the cost of a flush (2 filters x 64 rows) and the host ms beside
+     phase 8's;
  13. (seven lines) the multi-robot fleet through the port's entry points:
      ``run_multirobot.run`` (one MultiRobotCoordinator, R wavefronts a
      tick) for tests/test_allocation.py's two-rover runs (hungarian,
@@ -210,15 +215,16 @@ bench_suite.explore_run, active_loop and ring_run) and measure them through
 the loops' ``window`` hook, so the loop a mode times is the loop a phase
 holds to its bounds.
 Then a JSON line with every kernel's launches (K1/K2 from the last timed
-pass of phase 5, K3 from the G = 320 run of phase 7; ``launches_by_path``
+pass of phase 5, K3 from the G = 320 run of phase 7, the EKF window from
+phase 12's run; ``launches_by_path``
 gives each path's run: bench, explore, ablation, active, marsyard, rgbd,
 loop, dataset, tum, ekf, fleet, fleet_slam, active_entry, vo, stage: the
 pipeline's ranks summed, bench_modes: phase 16's in-process modes,
 graft_step: one entry() step, captured: phase 17's second captured
 pass, loops: phase 18's last captured pass, control: phase 19's last
 captured pass of each area, and sim: phase 20's captured loop), error,
-device times (CUDA events; level-0, one eye's four levels, window 1024x8192 and G = 320
-shapes) of the kernel,
+device times (CUDA events; level-0, one eye's four levels, window 1024x8192, G = 320
+and one 64-row EKF window shapes) of the kernel,
 its plain twin, the first port's kernel where it is still in the tree (K3's
 tiled kernel) and a PyTorch yardstick where one exists, and its bound; the card's
 ``nvidia-smi`` line; and as the last line ``{"ok": true, "device": {...}}``.
@@ -273,7 +279,7 @@ TUM_ATE_BOUND_M = 0.13
 TUM_KF_RANGE = (8, 30)
 N_BENCH_FRAMES = 60
 N_TIMED_PASSES = 3
-KERNELS = ("patch_gather", "hamming_top2", "wavefront_sweep")
+KERNELS = ("patch_gather", "hamming_top2", "wavefront_sweep", "ekf_window")
 K3_CASES = ((64, 192), (320, 512), (512, 512))
 # (H, W, iters): non-square, one cell, one row, iters not a multiple of the
 # tiled kernel's 8, and 513 x 513, the first square grid past the resident size rule
@@ -362,18 +368,46 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# seconds and calls at the start of a short profiler window spent on calls
+# it does not count
+PRIME_S, PRIME_CALLS = 1.0, 16
+MEASURED = "chip_smoke.measured"
+
+
+def prime_window(fn):
+    """Inside an open profiler window, call fn() for PRIME_S seconds and at
+    least PRIME_CALLS times, then synchronize, before the calls the window
+    counts (which run inside ``record_function(MEASURED)``). The profiler
+    drops a window's earliest device records, the more the older the process
+    (four 1-ms EKF flushes ~15 minutes into this script kept none; a fresh
+    process keeps all), so only the records after the mark are counted
+    (``measured_since``)."""
+    t0, n = time.perf_counter(), 0
+    while n < PRIME_CALLS or time.perf_counter() - t0 < PRIME_S:
+        fn()
+        n += 1
+    torch.cuda.synchronize()
+
+
+def measured_since(prof) -> float:
+    """The start (profiler us) of the window's MEASURED range."""
+    return min(e.time_range.start for e in prof.events() if e.name == MEASURED)
+
+
 def kernel_sum(fn, reps: int = 10):
     """(device ms, kernel launches) a call of fn(), summed over the kernels
-    that a torch.profiler window of ``reps`` calls records: the device's own
-    work, whatever the host's pace."""
+    that a torch.profiler window of ``reps`` calls records (after
+    ``prime_window``): the device's own work, whatever the host's pace."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    k = _kernel_times(prof)
+        prime_window(fn)
+        with torch.profiler.record_function(MEASURED):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    k = _kernel_times(prof, measured_since(prof))
     return sum(t for t, _ in k.values()) / reps / 1e3, sum(n for _, n in k.values()) / reps
 
 
@@ -738,12 +772,18 @@ def phase_k2(dev):
 
 def _counted():
     """{kernel: its wrapper, which counts the kernel's launches}. A package
-    from before the fused describe (``--tree``) has no describe wrapper."""
+    from before the fused describe (``--tree``) has no describe wrapper, one
+    from before the EKF window kernel no ``ops/ekf_window.py``."""
     from fitslam_tpu_torch.ops import orb, pallas_grid, pallas_matching, pallas_patches
 
+    try:
+        from fitslam_tpu_torch.ops.ekf_window import ekf_window
+    except ImportError:
+        ekf_window = None
     wrappers = {"gather": pallas_patches.gather_patches,
                 "describe": getattr(orb, "describe_keypoints", None),
-                "top2": pallas_matching.hamming_top2, "sweep": pallas_grid.wavefront_sweeps}
+                "top2": pallas_matching.hamming_top2, "sweep": pallas_grid.wavefront_sweeps,
+                "ekf": ekf_window}
     return {k: f for k, f in wrappers.items() if f is not None}
 
 
@@ -1331,10 +1371,13 @@ def run_active(dev, cfg, spec, landmarks, start, n_frames, max_omega=None, surfa
                     n_kf=int(system.slam.map.n_kf))
         return out
 
+    windows0 = system.ekf.windows if system.ekf is not None else 0
     _reset_counts()
     fps, cams = active_loop(system, nav, landmarks, n_frames, surface_z=surface_z,
                             window=window)
     launches = _counts()
+    # the EKF windows fused in the run: ekf_window's launches must equal it
+    r["ekf_windows"] = system.ekf.windows - windows0 if system.ekf is not None else 0
     system.finalize()
     gt = camera_matrices(cams)
     occ = system.occupancy().cpu().numpy()
@@ -2188,10 +2231,94 @@ def ekf_flush_cost(dev):
         dual.add_pose(0.0, 0.0, 0.0, gate=3.0)
         dual.flush()
 
-    # a flush is ~10^4 launches: a profiler window of a few flushes suffices,
-    # and a longer one takes the profiler tens of seconds to digest
     dev_ms, launches = kernel_sum(one_flush, reps=2)
     return dev_ms, launches, cuda_time_ms(one_flush, reps=5, warmup=1)[1]
+
+
+def ekf_window_work(T: int):
+    """(bytes, float32 operations) of one EKF window of T rows: x, P, Q and
+    the (T, 47) rows read, x and P written; a row's predict (F x, (F P) F^T,
+    Q dt) and update (two 15x15 LUs, the solves of S and of S^T's 15
+    right-hand sides, the gate, K, K innov and the Joseph form's three
+    products), at two operations a multiply-add."""
+    n = 15
+    n_bytes = 4 * (2 * (n + n * n) + n * n + T * (3 * n + 2))
+    predict = 2 * n * n + 2 * (2 * n ** 3) + 2 * n * n
+    update = (2 * (2 * n ** 3 // 3) + 2 * n * n + 2 * n ** 3 + 2 * n + n * n + 2 * n * n
+              + 3 * (2 * n ** 3) + 2 * n * n)
+    return n_bytes, T * (predict + update)
+
+
+def ekf_window_vs_twin(dev, reps: int = 50):
+    """The EKF window kernel beside its plain twin on the card, at a flush's
+    map-filter window (odometry, IMU rates and a gated SLAM pose, then
+    filler to WINDOW_CAP rows) from a state mid-mission: the largest |x| and
+    |P| differences of one window, the device ms a window of the kernel's
+    one-node graph and of the twin's captured graph (``run_ekf`` as the
+    parent ran it), the twin graph's kernels and the window's bound from
+    ``ekf_window_work``: the kernels line's entry. Raises if x differs by
+    more than 1e-5 or P by more than rtol 1e-5 / atol 1e-6."""
+    from fitslam_tpu_torch.models import localization as loc
+    from fitslam_tpu_torch.ops import ekf_window as ew
+
+    x0 = np.zeros(loc.STATE_DIM, np.float32)
+    x0[[loc.X, loc.Y, loc.YAW, loc.VX, loc.WZ]] = [-4.2, -4.6, 3.05, 0.4, 0.3]
+    st = loc.initial_state(x0, device="cpu")
+    P0 = (st.P + 0.01 * torch.eye(loc.STATE_DIM)).numpy()
+    rows = loc.rows_array([loc.sensor_row(loc.ODOM_MASK, np.array([0.41, 0.0]), np.full(2, 0.01),
+                                          0.15),
+                           loc.sensor_row(loc.IMU_MASK, np.array([0.0, 0.0, 0.28]),
+                                          np.full(3, 0.005), 0.0),
+                           loc.sensor_row(loc.POSE_MASK, np.array([-4.15, -4.58, -3.12]),
+                                          np.full(3, 0.02), 0.0, 3.0)],
+                          loc.DualEkf.WINDOW_CAP)
+    Q = loc.default_process_noise(dev)
+    r = torch.tensor(rows, device=dev)
+
+    def fresh():
+        return loc.EkfState(torch.tensor(x0, device=dev), torch.tensor(P0, device=dev))
+
+    def captured(fn, *args):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args)                                # the twin's solver handles and workspaces
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(*args)
+        return g, out
+
+    kernel_state = fresh()
+    ew.ekf_window(kernel_state, r, Q)
+    twin_in = fresh()
+    twin_graph, (twin_out, _) = captured(lambda s: loc.run_ekf(s, loc.batch_from_array(r), Q),
+                                         twin_in)
+    twin_graph.replay()
+    torch.cuda.synchronize()
+    dx = float((kernel_state.x - twin_out.x).abs().max())
+    dP = (kernel_state.P - twin_out.P).abs()
+    p_ok = bool((dP <= 1e-6 + 1e-5 * twin_out.P.abs()).all())
+    kernel_graph, _ = captured(ew.ekf_window, fresh(), r, Q)
+    kernel_us = cuda_time_ms(kernel_graph.replay, reps=reps)[0] * 1e3
+    twin_us = cuda_time_ms(twin_graph.replay, reps=max(5, reps // 10))[0] * 1e3
+    _, twin_kernels = kernel_sum(twin_graph.replay, reps=1)
+    T = loc.DualEkf.WINDOW_CAP
+    n_bytes, n_ops = ekf_window_work(T)
+    b = bound(n_bytes, n_ops, "f32")
+    log(f"[12 ekf window] the kernel beside its twin on the card, one {T}-row "
+        f"window: max |dx| {dx:.3g}, max |dP| {float(dP.max()):.3g} (P within rtol 1e-5 / atol "
+        f"1e-6: {p_ok}); device us a window: kernel {kernel_us:.1f} (one-node graph), twin's "
+        f"captured graph {twin_us:.1f} ({twin_kernels:.0f} kernels), {twin_us / kernel_us:.1f}x; "
+        f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}: {n_ops / 1e6:.3f} MFLOP, "
+        f"{n_bytes / 1e3:.1f} KB)")
+    if not (dx <= 1e-5 and p_ok):
+        raise AssertionError("[12 ekf window] the kernel and its twin differ on the card")
+    return {"max_abs_err": max(dx, float(dP.max())), "ms": kernel_us / 1e3,
+            "plain_ms": twin_us / 1e3, **b, "library_ms": None,
+            "library_call": "none: no PyTorch call computes an EKF window",
+            "shape": f"one window, {T} x {ew.ROW_WIDTH} rows",
+            "plain_kernels": twin_kernels}
 
 
 def ekf_dropout(dev, cfg, spec, landmarks):
@@ -2238,7 +2365,9 @@ def phase_ekf(dev, active):
     bounds and the active e2e bounds that apply at frame 80; then the dropout
     sub-run. Host
     ms a frame / tick / controller step stand beside phase 8's run of this
-    call (``active``). Returns the first run's launches."""
+    call (``active``). Raises unless the EKF window kernel's launches over
+    the run equal the windows the run's DualEkf fused. Returns the first
+    run's launches and the kernels line's EKF window entry."""
     from fitslam_tpu_torch.models.localization import TwistMux
     from fitslam_tpu_torch.ops import grid as gr
     from fitslam_tpu_torch.ops.grid import GridSpec2D
@@ -2254,6 +2383,7 @@ def phase_ekf(dev, active):
     errs = np.linalg.norm(est[:, :2] - r["truth"][:, :2], axis=1)
     dyaw = abs((est[-1, 2] - r["truth"][-1, 2] + math.pi) % (2 * math.pi) - math.pi)
     err0, err1, moved = ekf_dropout(dev, cfg, spec, world.landmarks)
+    ekfw = ekf_window_vs_twin(dev)
     flush_ms, flush_n, flush_wall = ekf_flush_cost(dev)
     known = r["occ"] != gr.UNKNOWN
     d = system.explorer.diag
@@ -2267,7 +2397,8 @@ def phase_ekf(dev, active):
         f"{dyaw:.4f} rad; {r['n_kf']} keyframes, ATE {r['ate']:.4f} m, coverage "
         f"{known.mean():.4f}, {d.goals_sent} goals; dropout (12 frames, 15 steps without): error {err0:.4f} -> {err1:.4f} m, the "
         f"estimate moved {moved:.3f} m; {ekf.flushes} flushes ({ekf.flushes / r['ctrl_n']:.2f} a "
-        f"controller step, {ekf.windows} windows of {ekf.WINDOW_CAP} rows), one flush of a frame's "
+        f"controller step, {r['ekf_windows']} windows of {ekf.WINDOW_CAP} rows in the run, "
+        f"{r['launches']['ekf']} EKF window kernel launches), one flush of a frame's "
         f"rows (2 filters x {ekf.WINDOW_CAP} rows): {flush_n:.0f} kernel launches, "
         f"{flush_ms * 1e3:.1f} us device, {flush_wall:.2f} ms host wall; estimate read a frame "
         f"{_per(r, 'pose', 's') * 1e3:.2f} ms host, {_per(r, 'pose', 'syncs'):.3f} host syncs; "
@@ -2277,13 +2408,16 @@ def phase_ekf(dev, active):
         f"host syncs a controller step {_per(a, 'ctrl', 'syncs'):.3f}; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     _check_windows(r, "[12 ekf]")
+    if not r["launches"]["ekf"] == r["ekf_windows"] > 0:
+        raise AssertionError(f"[12 ekf] {r['launches']['ekf']} EKF window kernel launches for "
+                             f"{r['ekf_windows']} windows fused")
     if not (errs[5:].mean() < 0.30 and dyaw < 0.3):
         raise AssertionError("[12 ekf] misses tests/test_ekf_integration.py's tracking bounds")
     if not (err1 < err0 + 0.35 and moved > 0.5):
         raise AssertionError("[12 ekf] misses tests/test_ekf_integration.py's dropout bounds")
     if not (r["n_kf"] >= 5 and r["ate"] < 0.5 and d.goals_sent >= 1):
         raise AssertionError("[12 ekf] misses tests/test_active_slam_e2e.py's bounds at frame 80")
-    return r["launches"]
+    return r["launches"], ekfw
 
 
 # ---------------------------------------------------------------------------
@@ -3723,18 +3857,24 @@ CAPTURE_PASSES = (False, True, True)   # eager, captured, captured (the second e
                                        # to keep the script inside its time limit)
 
 
-def _host_launches(prof):
+def _host_launches(prof, since=None):
     """(kernel launches, graph launches) the host made in a profiler window,
-    from its CUDA runtime and driver calls."""
+    from its CUDA runtime and driver calls; with ``since`` (profiler us),
+    those made from then on."""
     kernels = graphs = 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            continue
-        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                     "cuLaunchKernelEx"):
-            kernels += e.count
-        elif e.key.startswith("cudaGraphLaunch") or e.key.startswith("cuGraphLaunch"):
-            graphs += e.count
+    if since is None:
+        counts = [(e.key, e.count) for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CUDA]
+    else:
+        counts = [(e.name, 1) for e in prof.events()
+                  if e.device_type != torch.autograd.DeviceType.CUDA
+                  and e.time_range.start >= since]
+    for key, count in counts:
+        if key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                   "cuLaunchKernelEx"):
+            kernels += count
+        elif key.startswith("cudaGraphLaunch") or key.startswith("cuGraphLaunch"):
+            graphs += count
     return kernels, graphs
 
 
@@ -3887,24 +4027,30 @@ def _loop_profile(system, what):
             after[0].__enter__()
         return v
 
+    def one():
+        call()
+        if after:
+            after.pop().__exit__(None, None, None)
+
     ex._read = marked_read
     torch.cuda.synchronize()
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
     with prof:
-        t0 = time.perf_counter()
-        for _ in range(LOOP_PROFILE_CALLS):
-            call()
-            if after:
-                after.pop().__exit__(None, None, None)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
+        prime_window(one)
+        with torch.profiler.record_function(MEASURED):
+            t0 = time.perf_counter()
+            for _ in range(LOOP_PROFILE_CALLS):
+                one()
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
     ex._read = read
     n = LOOP_PROFILE_CALLS
-    times = _kernel_times(prof)
+    since = measured_since(prof)
+    times = _kernel_times(prof, since)
     times.pop("after_read", None)     # the marker's own range, not a kernel
     busy_us = sum(t for t, _ in times.values())
-    host_k, host_g = _host_launches(prof)
+    host_k, host_g = _host_launches(prof, since)
     launch = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
     def after_read(e):
@@ -3914,7 +4060,8 @@ def _loop_profile(system, what):
             e = e.cpu_parent
         return False
 
-    late = sum(1 for e in prof.events() if e.name in launch and after_read(e))
+    late = sum(1 for e in prof.events()
+               if e.name in launch and e.time_range.start >= since and after_read(e))
     if busy_us <= 0:
         raise AssertionError(f"[18 loops] the profiler recorded no device time in a {what}")
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
@@ -4809,9 +4956,17 @@ def phase_sim(dev, smi):
     return ac["launches"]
 
 
-def _kernel_times(prof):
-    """{kernel name: (device us, launches)} of a profiler's CUDA kernels."""
+def _kernel_times(prof, since=None):
+    """{kernel name: (device us, launches)} of a profiler's CUDA kernels;
+    with ``since`` (profiler us), of those that start from then on."""
     out = {}
+    if since is not None:
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name != MEASURED \
+                    and e.time_range.start >= since:
+                t, n = out.get(e.name, (0.0, 0))
+                out[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        return out
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -4937,7 +5092,7 @@ def main() -> int:
     phase_atlas(dev)
     phase_ba(dev, loop)
     paths["dataset"], paths["tum"] = phase_dataset(dev)
-    paths["ekf"] = phase_ekf(dev, active)
+    paths["ekf"], ekfw = phase_ekf(dev, active)
     paths["fleet"] = phase_fleet(dev)
     paths["fleet_slam"] = phase_fleet_slam(dev)
     paths["active_entry"], paths["vo"] = phase_entry(dev)
@@ -4950,8 +5105,8 @@ def main() -> int:
 
     def by_path(kernel):
         """The kernel's launches in each path's run (counts set to 0 just
-        before it, read just after)."""
-        return {path: counts[kernel] for path, counts in paths.items()}
+        before it, read just after; None where a path did not count it)."""
+        return {path: counts.get(kernel) for path, counts in paths.items()}
 
     kernels = [
         {"name": "K1 patch gather", "route": "cuda",
@@ -4972,6 +5127,10 @@ def main() -> int:
          "source": "fitslam_tpu_torch/csrc/wavefront_sweep.cu",
          "replaces": "fitslam_tpu/ops/pallas_grid.py:29", "launches": paths["explore"]["sweep"],
          "launches_by_path": by_path("sweep"), **k3},
+        {"name": "EKF window", "route": "cuda", "source": "fitslam_tpu_torch/csrc/ekf_window.cu",
+         "replaces": "none: the reference's lax.scan, fitslam_tpu/models/localization.py:182",
+         "launches": paths["ekf"]["ekf"], "launches_by_path": by_path("ekf"),
+         "launches_note": "phase 12's run: one a window its DualEkf fused", **ekfw},
     ]
     log(f"[done] phases 1-20 in {time.monotonic() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -25,12 +25,13 @@ runners: ``python -m fitslam_tpu_torch.bench`` (the headline),
 mode) and ``graft_entry.entry()`` (the flagship frame step).
 ``jax.random``'s draws of the reference's worlds are made bit for bit in
 numpy (``utils/prng.py``). Their
-three hand-written Hopper kernels live in ``csrc/`` and are built with nvcc
+four hand-written Hopper kernels live in ``csrc/`` and are built with nvcc
 at first use:
 
 K1  ``csrc/patch_gather.cu``     (``ops/pallas_patches.py``) — ORB 40x40 patch gather
 K2  ``csrc/hamming_top2.cu``     (``ops/pallas_matching.py``) — gated Hamming top-2
 K3  ``csrc/wavefront_sweep.cu``  (``ops/pallas_grid.py``) — wavefront potential sweeps
+EKF ``csrc/ekf_window.cu``       (``ops/ekf_window.py``) — a filter's window of EKF rows
 
 This package imports ``torch`` and never ``jax``, and nothing of the
 reference package either: the configuration, the evaluation helpers, the

@@ -12,17 +12,19 @@ boolean masks select the fused dims; a Mahalanobis threshold gates an update.
 The filter is a pure function of (state, measurement window): each row
 carries a fixed-size 15-dim measurement and its mask, and masked dims are
 fused with a variance of ``BIG_VAR`` (a vanishing gain) instead of a branch.
-The reference scans a window in one ``lax.scan``; here the scan is a Python
-loop over rows of float32 PyTorch operations that never reads a value back,
-so a whole window is queued without a host sync. ``DualEkf`` runs each
-window as a captured program (``utils/jit.py``, the counterpart of the
-reference's ``vjit(_run_ekf)``): one region a filter, whose state lives in
-the slot's buffers and whose one input is the window's rows, staged to the
-device in one copy a flush. The 15x15 products run in
-float32 (the reference multiplies at HIGHEST precision; TF32 stays off, as
-the SLAM engine sets it), and the two solves of an update share one LU
-factorization of S. ``run_ekf_fleet`` is the reference's ``vmap`` over
-robots: the same loop over a leading robot dimension.
+The reference scans a window in one ``lax.scan``; ``run_ekf`` is the plain
+version of that scan, a Python loop over rows of float32 PyTorch operations
+(the reference multiplies at HIGHEST precision; TF32 stays off, as the SLAM
+engine sets it) whose update solves S and S^T by LU. ``ops/ekf_window.py``'s
+``ekf_window`` runs a window of packed rows on the card as one launch of the
+hand-written kernel ``csrc/ekf_window.cu`` (every row in order inside one
+thread block, state and covariance in shared memory), and ``run_ekf`` on the
+CPU. ``DualEkf`` runs each window as a captured program (``utils/jit.py``,
+the counterpart of the reference's ``vjit(_run_ekf)``): one region a filter
+around ``ekf_window``, whose state lives in the slot's buffers and whose one
+input is the window's rows, staged to the device in one copy a flush.
+``run_ekf_fleet`` is the reference's ``vmap`` over robots: the same loop
+over a leading robot dimension.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fitslam_tpu_torch.ops.ekf_window import ekf_window
 from fitslam_tpu_torch.utils import jit, profiling
 from fitslam_tpu_torch.utils.transfer import upload
 
@@ -257,10 +260,9 @@ run_ekf_fleet = run_ekf
 
 def window_region(state: EkfState, rows: torch.Tensor, Q: torch.Tensor):
     """One window of packed rows (``rows_array``'s layout, on the device)
-    fused into ``state`` by ``run_ekf``: the region ``DualEkf`` captures.
+    fused into ``state`` by ``ekf_window``: the region ``DualEkf`` captures.
     Writes the state."""
-    state, _ = run_ekf(state, batch_from_array(rows), Q)
-    return (state,), ()
+    return (ekf_window(state, rows, Q),), ()
 
 
 # ---------------------------------------------------------------------------
@@ -351,12 +353,13 @@ class DualEkf:
     one copy, counted in ``host_syncs``.
 
     With ``capture`` (the default) each window is a captured region
-    (``utils/jit.py``; a CUDA graph on a CUDA device), one a filter
-    (``ekf_odom``, ``ekf_map``), and both states live in the slot's buffers,
-    claimed at the first flush: ``odom_state`` and ``map_state`` are those
-    buffers, updated in place by each flush, and assigning either copies into
-    them. ``capture=False`` runs the same windows as plain PyTorch, the eager
-    path that captured runs are held to."""
+    (``utils/jit.py``; on a CUDA device a graph of one ``ekf_window``
+    kernel), one a filter (``ekf_odom``, ``ekf_map``), and both states live
+    in the slot's buffers, claimed at the first flush: ``odom_state`` and
+    ``map_state`` are those buffers, updated in place by each flush, and
+    assigning either copies into them. ``capture=False`` calls
+    ``ekf_window`` on the owner's own states, in place, without a graph:
+    the eager path that captured runs are held to."""
 
     #: fixed flush window, as the reference's one compiled shape
     WINDOW_CAP = 64
@@ -379,7 +382,7 @@ class DualEkf:
         self._map_rows: list = []
         self.host_syncs = 0       # device->host reads so far (one a flush)
         self.flushes = 0          # flush() calls so far
-        self.windows = 0          # run_ekf windows fused so far
+        self.windows = 0          # windows fused so far (ekf_window calls)
 
     odom_state = jit.slot_field("ekf_odom")
     map_state = jit.slot_field("ekf_map")

@@ -236,10 +236,11 @@ def _counters():
     """The kernel wrappers whose ``launches`` a captured region must keep
     counting at replay (looked up by module attribute, where callers read
     them)."""
-    from fitslam_tpu_torch.ops import orb, pallas_grid, pallas_matching, pallas_patches
+    from fitslam_tpu_torch.ops import ekf_window, orb, pallas_grid, pallas_matching, pallas_patches
 
     return ((orb, "describe_keypoints"), (pallas_matching, "hamming_top2"),
-            (pallas_patches, "gather_patches"), (pallas_grid, "wavefront_sweeps"))
+            (pallas_patches, "gather_patches"), (pallas_grid, "wavefront_sweeps"),
+            (ekf_window, "ekf_window"))
 
 
 def _read_counts() -> Tuple[int, ...]:

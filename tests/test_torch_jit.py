@@ -35,7 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from fitslam_tpu_torch.data.tum import read_pgm
 from fitslam_tpu_torch.models import tracking as ttr
 from fitslam_tpu_torch.models.slam import StereoSlam
-from fitslam_tpu_torch.ops import orb, pallas_matching
+from fitslam_tpu_torch.ops import ekf_window, orb, pallas_matching
 from fitslam_tpu_torch.utils import checkpoint, interop, jit
 from fitslam_tpu_torch.utils.config import FitSlamConfig
 
@@ -354,6 +354,23 @@ def test_replays_count_the_captured_launches(monkeypatch):
         step.replay()
     assert len(replays) == step.calls == 4
     assert (orb.describe_keypoints.launches, pallas_matching.hamming_top2.launches) == (13, 19)
+
+
+def test_replays_count_the_ekf_window_launches(monkeypatch):
+    """A DualEkf region's graph holds one EKF window kernel: the launch seen
+    while it is captured is undone, then each replay counts one, so
+    ``ekf_window.launches`` reads one a window fused, eager or replayed."""
+    monkeypatch.setattr(ekf_window.ekf_window, "launches", 11)
+    slot = jit.Slot("cpu", {})
+    step = jit.CapturedStep(lambda: ((), ()), "ekf_map", slot)
+    with jit.record_launches() as rec:
+        ekf_window.ekf_window.launches += 1
+    assert ekf_window.ekf_window.launches == 11 and sum(rec.delta) == 1
+    step.graph = SimpleNamespace(replay=lambda: None)
+    step.launch_delta = rec.delta
+    for _ in range(3):
+        step.replay()
+    assert ekf_window.ekf_window.launches == 14
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,17 @@ they carry the ``gpu`` marker and skip without CUDA. On the card:
 
     python3 -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: none. K1's gather is a copy (bit-equal); K1's fused describe sums
+Tolerance: none for K1-K3. K1's gather is a copy (bit-equal); K1's fused describe sums
 in the order its twin fixes (angle and descriptor bit-equal); K2's outputs
 are integers (exactly equal); K3 is min and one float32 add per cell and
-sweep, in the same Jacobi order as its twin (exactly equal).
+sweep, in the same Jacobi order as its twin (exactly equal). The EKF window
+sums 15-term products in index order and factors by its own LU, against
+BLAS's orders and LAPACK's LU in the twin on the CPU: x within 1e-5, P
+within rtol 1e-5 / atol 1e-6, and bit-equal run to run.
 """
 
+
+import math
 
 import numpy as np
 import pytest
@@ -358,6 +363,128 @@ def test_dual_ekf_on_the_card_matches_cpu(cuda):
     assert np.array_equal(card, again) and np.array_equal(card_x, again_x)
     np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
     np.testing.assert_allclose(card_x, cpu_x, rtol=0, atol=1e-5)
+
+
+# (T, case) of the EKF window kernel's tests: a yaw that wraps across +-pi
+# in every case, the gimbal guard (pitch within 1e-7 of pi/2) in two; the
+# mixed windows hold dt = 0 rows, rejected outliers and filler rows; 64 rows
+# is the kernel's most
+EKF_WINDOW_CASES = [(1, "wrap"), (3, "gimbal"), (64, "mixed"), (64, "gimbal")]
+
+
+def _ekf_window_case(T, case):
+    """(x, P, rows) of a window of T packed rows: up to 56 rows cycling
+    through the sensors of ``case``, then filler rows (at least T / 8)."""
+    from fitslam_tpu_torch.models import localization as loc
+
+    rng = np.random.default_rng(1000 * T + len(case))
+    x = np.zeros(loc.STATE_DIM, np.float32)
+    x[[loc.X, loc.Y, loc.YAW]] = 0.3, -0.2, 3.1
+    if case == "gimbal":
+        x[loc.PITCH] = np.float32(np.pi / 2)
+    P = np.diag(np.where(np.arange(loc.STATE_DIM) < loc.VX, 1e-3, 1.0)).astype(np.float32)
+    kinds = ["pose", "odom", "outlier", "filler"] if case == "gimbal" else \
+        ["pose", "odom", "rates", "orientation", "outlier", "filler"]
+    rows = []
+    for k in range(min(T - max(1, T // 8), 56) if T > 1 else 1):
+        kind = kinds[k % len(kinds)]
+        if kind == "pose":       # gated; its yaw across +-pi from the state's
+            rows.append(loc.sensor_row(loc.POSE_MASK, [0.3 + 0.01 * k, -0.2, -3.12],
+                                       np.full(3, 2e-2), 0.1, 3.0))
+        elif kind == "odom":
+            rows.append(loc.sensor_row(loc.ODOM_MASK, rng.normal(0.4, 0.1, 2),
+                                       np.full(2, 1e-2), 0.05))
+        elif kind == "rates":    # dt = 0
+            rows.append(loc.sensor_row(loc.IMU_MASK, rng.normal(0, 0.2, 3), np.full(3, 5e-3), 0.0))
+        elif kind == "orientation":
+            rows.append(loc.sensor_row(loc.IMU_ORI_MASK, [0.01, -0.02, rng.choice([3.13, -3.13])],
+                                       np.full(3, 1e-2), 0.0, 0.8))
+        elif kind == "outlier":  # the gate rejects it
+            rows.append(loc.sensor_row(loc.POSE_MASK, [40.0, -30.0, 1.0], np.full(3, 2e-2),
+                                       0.0, 3.0))
+        else:
+            rows.append(loc.noop_row())
+    return x, P, loc.rows_array(rows, T)
+
+
+@pytest.mark.parametrize("T,case", EKF_WINDOW_CASES)
+def test_ekf_window_matches_twin(cuda, T, case):
+    """The EKF window kernel against its plain twin (run_ekf) run on the CPU
+    from the same inputs: x within 1e-5, P within rtol 1e-5 / atol 1e-6
+    (sums in another order and LAPACK's LU against the kernel's, all in
+    float32); two runs on the card bit-equal (no atomics); one launch a
+    window, the state written in place."""
+    from fitslam_tpu_torch.models import localization as loc
+    from fitslam_tpu_torch.ops import ekf_window as ew
+
+    x, P, rows = _ekf_window_case(T, case)
+    Q = loc.default_process_noise("cpu")
+    want = ew.ekf_window(loc.EkfState(torch.tensor(x), torch.tensor(P)), torch.tensor(rows), Q)
+    runs = []
+    for _ in range(2):
+        state = loc.EkfState(torch.tensor(x, device=cuda), torch.tensor(P, device=cuda))
+        before = ew.ekf_window.launches
+        out = ew.ekf_window(state, torch.tensor(rows, device=cuda), Q.to(cuda))
+        assert out is state and ew.ekf_window.launches == before + 1
+        runs.append((state.x.cpu(), state.P.cpu()))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    np.testing.assert_allclose(runs[0][0].numpy(), want.x.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(runs[0][1].numpy(), want.P.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_ekf_window_captured_replay_equals_eager(cuda):
+    """The kernel captured in a CUDA graph: two replays equal two eager calls
+    on the same rows, bit for bit (the second continues from the first's
+    state, written in place)."""
+    from fitslam_tpu_torch.models import localization as loc
+    from fitslam_tpu_torch.ops import ekf_window as ew
+
+    x, P, rows = _ekf_window_case(64, "mixed")
+    Q = loc.default_process_noise(cuda)
+    r = torch.tensor(rows, device=cuda)
+    eager = loc.EkfState(torch.tensor(x, device=cuda), torch.tensor(P, device=cuda))
+    captured = loc.EkfState(torch.tensor(x, device=cuda), torch.tensor(P, device=cuda))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        ew.ekf_window(captured, r, Q)
+    captured.x.copy_(torch.tensor(x, device=cuda))
+    captured.P.copy_(torch.tensor(P, device=cuda))
+    for _ in range(2):
+        ew.ekf_window(eager, r, Q)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured.x, eager.x) and torch.equal(captured.P, eager.P)
+
+
+# float32 angles at the edges of the wrap: +-pi, its neighbours, odd
+# multiples of pi, +-2 pi, zeros of both signs and a tiny one
+WRAP_EDGES = [np.float32(math.pi), -np.float32(math.pi),
+              np.nextafter(np.float32(math.pi), np.float32(0)),
+              np.nextafter(np.float32(math.pi), np.float32(4)),
+              np.nextafter(-np.float32(math.pi), np.float32(0)),
+              np.nextafter(-np.float32(math.pi), np.float32(-4)),
+              np.float32(3 * math.pi), np.float32(-3 * math.pi), np.float32(6.2831855),
+              np.float32(-6.2831855), np.float32(0.0), np.float32(-0.0), np.float32(1e-30)]
+
+
+@pytest.mark.parametrize("angle", WRAP_EDGES, ids=lambda a: f"{float(a):.9g}")
+def test_ekf_window_wraps_as_torch_remainder(cuda, angle):
+    """The kernel's angle wrap bit-equal to the twin's torch.remainder on the
+    CPU at the wrap's edges: roll and yaw set to the angle, one filler row
+    (dt = 0, nothing measured), so x is wrapped twice (the prediction, then
+    the update) and otherwise unchanged."""
+    from fitslam_tpu_torch.models import localization as loc
+    from fitslam_tpu_torch.ops import ekf_window as ew
+
+    x = np.zeros(loc.STATE_DIM, np.float32)
+    x[[loc.X, loc.ROLL, loc.YAW]] = 0.5, angle, angle
+    P = np.eye(loc.STATE_DIM, dtype=np.float32) * np.float32(1e-2)
+    rows = loc.rows_array([loc.noop_row()])
+    Q = loc.default_process_noise("cpu")
+    want = ew.ekf_window(loc.EkfState(torch.tensor(x), torch.tensor(P)), torch.tensor(rows), Q)
+    got = ew.ekf_window(loc.EkfState(torch.tensor(x, device=cuda), torch.tensor(P, device=cuda)),
+                        torch.tensor(rows, device=cuda), Q.to(cuda))
+    assert torch.equal(got.x.cpu(), want.x), (got.x.cpu(), want.x)
 
 
 def test_k3_r_wavefronts_in_a_row_equal_twin(cuda):

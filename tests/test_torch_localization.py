@@ -21,6 +21,7 @@ import torch
 
 from fitslam_tpu.models import localization as jloc
 from fitslam_tpu_torch.models import localization as loc
+from fitslam_tpu_torch.ops import ekf_window as ew
 from fitslam_tpu_torch.utils import interop
 
 torch.set_num_threads(2)
@@ -284,6 +285,56 @@ def test_run_ekf_window_matches_reference():
     np.testing.assert_allclose(tf.x.numpy(), np.asarray(jf.x), **RUN_TOL)
     np.testing.assert_allclose(txs.numpy(), np.asarray(jxs), **RUN_TOL)
     np.testing.assert_allclose(tf.P.numpy(), np.asarray(jf.P), **RUN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# ekf_window: one kernel launch a window on the card, run_ekf on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [1, 3, 64])
+def test_ekf_window_on_the_cpu_is_run_ekf(T):
+    """On CPU tensors ``ekf_window`` is its plain twin: bit-equal to
+    ``run_ekf`` on the same rows (filler rows among them), written into the
+    state in place, and no kernel launch counted."""
+    rng = np.random.default_rng(40 + T)
+    x, P = _random_state(rng, yaw=math.pi - 1e-3)
+    rows = torch.tensor(loc.rows_array(_rows(rng, max(1, T - 8)), T))
+    Q = loc.default_process_noise("cpu")
+    want, _ = loc.run_ekf(interop.ekf_state_from_reference(x, P), loc.batch_from_array(rows), Q)
+    state = interop.ekf_state_from_reference(x, P)
+    before = ew.ekf_window.launches
+    got = ew.ekf_window(state, rows, Q)
+    assert got is state and ew.ekf_window.launches == before
+    assert torch.equal(state.x, want.x) and torch.equal(state.P, want.P)
+
+
+def _window_args(bad):
+    state = loc.initial_state(device="cpu")
+    rows = torch.tensor(loc.rows_array([loc.noop_row()] * 4))
+    Q = loc.default_process_noise("cpu")
+    if bad == "width":
+        rows = rows[:, :-1].contiguous()
+    elif bad == "dtype":
+        rows = rows.double()
+    elif bad == "no rows":
+        rows = rows[:0]
+    elif bad == "too many rows":
+        rows = torch.zeros(ew.MAX_ROWS + 1, ew.ROW_WIDTH)
+    elif bad == "float64 state":
+        state = loc.EkfState(state.x.double(), state.P)
+    elif bad == "not contiguous":
+        state = loc.EkfState(state.x, state.P.t())
+    elif bad == "devices":
+        rows = rows.to("meta")
+    return state, rows, Q
+
+
+@pytest.mark.parametrize("bad", ["width", "dtype", "no rows", "too many rows", "float64 state",
+                                 "not contiguous", "devices"])
+def test_ekf_window_refuses_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        ew.ekf_window(*_window_args(bad))
 
 
 def test_run_ekf_fleet_matches_reference():

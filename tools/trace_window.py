@@ -8,10 +8,11 @@ sees of a benchmark cell's window, and what it costs.
 and prints one line ``WINDOW {json}``: the run's metrics (the per-layer ones
 with ``--trace 1``, the end-to-end ones without), the spans a second in the
 window, whether the ring dropped any of them, the recorder's counters over
-the window, the host wait of each read site, the device ms of each
-region's replays a step, and the window's host time outside the replays on
-the card by innermost host span (the device idle or running eager work
-under it), the profiled slice left out. Run from the root of a checkout.
+the window, the EKF window kernel's launches a flush over the run, the host
+wait of each read site, the device ms of each region's replays a step, and
+the window's host time outside the replays on the card by innermost host
+span (the device idle or running eager work under it), the profiled slice
+left out. Run from the root of a checkout.
 
 ``probe`` prints ``PROBE {json}``: the seconds the first timed span takes
 to make the event pool, the host cost of a region's span (two events), of
@@ -76,6 +77,7 @@ def cell_main(args):
 
     from benchmark import core, report
     from benchmark.metrics import _program_spans as ps
+    from fitslam_tpu_torch.ops import ekf_window
     from fitslam_tpu_torch.utils import profiling
 
     cell = core.resolve(args.cell)
@@ -84,7 +86,10 @@ def cell_main(args):
     ts = cell.traffic.get("trace_slice", {})
     tracer = core.Tracer(bool(args.trace), ts.get("skip", 0), ts.get("frames", 0), dev)
     rec = profiling.RECORDER
+    launches0 = ekf_window.ekf_window.launches
+    flushes0 = rec.counters()["reads"].get("DualEkf.flush", 0)
     run = core.driver(cell).run(cell, args.seed, args.seconds, tracer, dev)
+    flushes = rec.counters()["reads"].get("DualEkf.flush", 0) - flushes0
     metrics = {}
     t0 = time.perf_counter()
     for m in (cell.per_layer if args.trace else cell.end_to_end):
@@ -97,7 +102,9 @@ def cell_main(args):
            "card": torch.cuda.get_device_name(dev), "enabled": rec.enabled,
            "correct": all(c["ok"] for c in checks.values()), "attempted": run["attempted"],
            "window_s": run["window_s"], "metrics": metrics, "readers_s": read_s,
-           "counters": rec.counters()}
+           "counters": rec.counters(),
+           "ekf_window_launches_per_flush":
+               (ekf_window.ekf_window.launches - launches0) / flushes if flushes else None}
     w = ps.window(run)
     if w is not None:
         n_steps = len(run["steps"]) - sum(s.get("traced", False) for s in run["steps"])
